@@ -9,7 +9,9 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
   2. build    every CUDA kernel from nerf_attention_tpu_torch/csrc with nvcc,
               one nvcc per source, all started together
   3. kernels  each kernel against its plain PyTorch version at the main paths'
-              shapes (sweep and decode: S=2048, D=128; attention: 8 heads,
+              shapes (sweep and decode: S=2048, D=128; 2A at all 7 configs,
+              N=40, exact and fast sine, at the plan path's 128 `small`
+              nets with S=512, and at S=300 with FM x64; attention: 8 heads,
               medium nets, S=2048 and 32768, T=1, and T=16 causal, exact sine,
               FM x64, ragged S=300; 2C also at 8 heads, fast sine, each S of
               the ladder), with the tolerances of the CPU tests, and
@@ -27,8 +29,9 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               and three quantized schemes
   8. launches every kernel of the attention path (2C, 2D, 2F, 2I) was
               launched by phase 7 (counters zeroed just before it)
-  9. determinism  the medium group twice for 50 epochs, and kernels 2D, 2F,
-              2I, 2G, 2H and 2E twice on the same inputs: bit-identical
+  9. determinism  the medium group twice for 50 epochs, and kernels 2A (large,
+              N=40), 2D, 2F, 2I, 2G, 2H and 2E twice on the same inputs:
+              bit-identical
  10. mla      the MLA decode path: the MLA ladder tool at DeepSeek-V2-Lite's
               widths (H=16, kv_lora_rank 512, rope 64, hidden 2048, dense FFN
               10944, bf16, YaRN rope scaling), S=1024/4096/16384/32768, all
@@ -63,7 +66,8 @@ schemes) to its plain version, and to 2C on the host-dequantized weights
 (max abs diff 0). Each kernel's time at the main path's shapes stands beside its
 plain version's, its bound (the larger of its bytes at 3.35 TB/s and its
 operations at the peak for their operand type: 67 TFLOP/s fp32, 989 TFLOP/s
-bf16 on the tensor cores; from this run's shapes) and, where one PyTorch
+bf16 and 495 TFLOP/s TF32 on the tensor cores (2A: 3xTF32 counted as one pass,
+the three-pass floor printed beside it); from this run's shapes) and, where one PyTorch
 call computes the same function, that call's time (library_ms; the port
 never calls it).
 
@@ -95,6 +99,7 @@ DECODE_TOL = dict(rtol=1e-5, atol=2e-5)
 TRAIN_TOL = {
     "exact": dict(loss=dict(rtol=1e-5, atol=1e-6), grads=dict(rtol=1e-4, atol=1e-6)),
     "fast": dict(loss=dict(rtol=1e-3, atol=1e-5), grads=dict(rtol=1e-3, atol=1e-5)),
+    "fm": dict(loss=dict(rtol=1e-3, atol=1e-4), grads=dict(rtol=1e-3, atol=1e-4)),
 }
 FM_MULT = 64.0
 # tests/test_torch_siren_attention.py and tests/test_torch_kv_quant.py
@@ -106,8 +111,10 @@ SCHEMES = ("int8_g32", "int6_g64", "int4_g128")
 LIBRARIES = ("siren_decode", "siren_train", "siren_attention", "kv_quant_attention", "mla_absorbed_attention",
              "siren_decode_quant")
 
-# H100 SXM data sheet: fp32 outside the tensor cores, bf16 on the tensor cores (dense), device memory.
+# H100 SXM data sheet: fp32 outside the tensor cores, bf16 and TF32 on the tensor cores (dense), device memory.
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
+PEAK_TF32_FLOPS = 495e12
+TRAIN_SIMT_MS = 10.4799  # kernel 2A's earlier fp32 SIMT version: medium, N=40, S=2048 (PERF.md §6)
 
 # The MLA slice: DeepSeek-V2-Lite's attention (huggingface.co/deepseek-ai/DeepSeek-V2-Lite config.json).
 MLA_H, MLA_R, MLA_ROPE = 16, 512, 64
@@ -657,7 +664,7 @@ def main() -> int:
     from nerf_attention_tpu_torch.synthetic import generate_synthetic_kv
     from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME, CONFIGS_FULL
     from nerf_attention_tpu_torch.utils.device import pin_fp32_matmul
-    from nerf_attention_tpu_torch.utils.timing import per_launch_ms
+    from nerf_attention_tpu_torch.utils.timing import kernel_ms_per_call, per_launch_ms
 
     pin_fp32_matmul()
     dev = torch.device("cuda")
@@ -724,39 +731,71 @@ def main() -> int:
             report["siren_decode_batch"]["max_abs_err"] = max(report["siren_decode_batch"]["max_abs_err"], err)
         del k_stack, got, want
 
-        gen = torch.Generator().manual_seed(7)
-        targets = torch.randn(N_FITS, SEQ_LEN, HEAD_DIM, generator=gen).to(dev)
-        targets_norm = normalize_targets(targets)[0].contiguous()
+        def targets_for(n, seq_len, seed):
+            gen = torch.Generator().manual_seed(seed)
+            return normalize_targets(torch.randn(n, seq_len, HEAD_DIM, generator=gen).to(dev))[0].contiguous()
+
+        def check_train(stack, targets_norm, tag, tol, **kw):
+            loss, grads = siren_train_cuda.siren_train_grads(stack, targets_norm, **kw)
+            want_loss, want_grads = siren_train_cuda.siren_train_grads_plain(stack, targets_norm, **kw)
+            torch.cuda.synchronize()
+            err = check_close(f"{tag} loss", loss, want_loss, **tol["loss"])
+            for i, ((gw, gb), (ww, wb)) in enumerate(zip(grads.params(), want_grads.params())):
+                err = max(err, check_close(f"{tag} dW{i}", gw, ww, **tol["grads"]))
+                err = max(err, check_close(f"{tag} db{i}", gb, wb, **tol["grads"]))
+            return err
+
+        targets_norm = targets_for(N_FITS, SEQ_LEN, seed=7)
         train_err = 0.0
         train_ms = {}
         for config in CONFIGS_FULL:
             stack = stack_for(config, N_FITS, seed=config.hidden_features)
-            if config.name in ("tiny", "medium", "large"):
-                for sin_impl in ("exact", "fast"):
-                    kw = dict(omega=config.omega_0, sin_impl=sin_impl)
-                    loss, grads = siren_train_cuda.siren_train_grads(stack, targets_norm, **kw)
-                    want_loss, want_grads = siren_train_cuda.siren_train_grads_plain(stack, targets_norm, **kw)
-                    torch.cuda.synchronize()
-                    tol = TRAIN_TOL[sin_impl]
-                    tag = f"siren_train_grads N={N_FITS} {config.name} {sin_impl}"
-                    train_err = max(train_err, check_close(f"{tag} loss", loss, want_loss, **tol["loss"]))
-                    for i, ((gw, gb), (ww, wb)) in enumerate(zip(grads.params(), want_grads.params())):
-                        train_err = max(train_err, check_close(f"{tag} dW{i}", gw, ww, **tol["grads"]))
-                        train_err = max(train_err, check_close(f"{tag} db{i}", gb, wb, **tol["grads"]))
+            for sin_impl in ("exact", "fast"):
+                train_err = max(train_err, check_train(
+                    stack, targets_norm, f"siren_train_grads N={N_FITS} {config.name} {sin_impl}", TRAIN_TOL[sin_impl],
+                    omega=config.omega_0, sin_impl=sin_impl))
             kw = dict(omega=config.omega_0, sin_impl="fast")
             train_ms[config.name] = (
                 median_ms(lambda: siren_train_cuda.siren_train_grads(stack, targets_norm, **kw), 10),
                 median_ms(lambda: siren_train_cuda.siren_train_grads_plain(stack, targets_norm, **kw), 10),
             )
-            print(f"  siren_train_grads N={N_FITS} {config.name} fast: kernel {train_ms[config.name][0]:.3f} ms, "
-                  f"plain {train_ms[config.name][1]:.3f} ms per step")
-        # Forward, and the backward's two products per layer: 6 flops per multiply-add.
+            print(f"  siren_train_grads N={N_FITS} {config.name} fast: kernel {train_ms[config.name][0]:.4f} ms, "
+                  f"plain {train_ms[config.name][1]:.4f} ms per step")
+        # The plan path's shape, and rows that are not a multiple of the kernel's 64-row tile with FM.
+        small = CONFIGS_BY_NAME["small"]
+        plan_stack, plan_targets = stack_for(small, PLAN_NETS, seed=22), targets_for(PLAN_NETS, PLAN_SEQ_LEN, seed=8)
+        for sin_impl in ("fast", "exact"):
+            train_err = max(train_err, check_train(
+                plan_stack, plan_targets, f"siren_train_grads small N={PLAN_NETS} S={PLAN_SEQ_LEN} {sin_impl} (plan)",
+                TRAIN_TOL[sin_impl], omega=small.omega_0, sin_impl=sin_impl))
+        ragged = targets_for(N_FITS, 300, seed=9)
+        for config in (medium, CONFIGS_BY_NAME["tiny"]):
+            for sin_impl in ("exact", "fast"):
+                train_err = max(train_err, check_train(
+                    stack_for(config, N_FITS, seed=23), ragged,
+                    f"siren_train_grads N={N_FITS} {config.name} S=300 {sin_impl} fm={FM_MULT}", TRAIN_TOL["fm"],
+                    omega=config.omega_0, sin_impl=sin_impl, fm_mult=FM_MULT))
+        # Forward, and the backward's two products per layer: 6 flops per multiply-add, on the tensor cores
+        # in TF32 (3xTF32 counted once; the three passes' floor is printed beside it).
         macs, pbytes = siren_macs(layer_dims(medium, HEAD_DIM))
+        train_flops = 6 * macs * SEQ_LEN * N_FITS
         report["siren_train_grads"] = dict(
             max_abs_err=train_err, ms=train_ms["medium"][0], plain_ms=train_ms["medium"][1],
             shape=f"medium, N={N_FITS}, S={SEQ_LEN}, D={HEAD_DIM}, fast sine, loss + all grads", library_ms=None,
-            **bound(6 * macs * SEQ_LEN * N_FITS, N_FITS * (SEQ_LEN * HEAD_DIM * 4 + 2 * pbytes + 4)),
+            **bound(train_flops, N_FITS * (SEQ_LEN * HEAD_DIM * 4 + 2 * pbytes + 4), PEAK_TF32_FLOPS),
         )
+        medium_stack = stack_for(medium, N_FITS, seed=medium.hidden_features)
+        split = kernel_ms_per_call(lambda: siren_train_cuda.siren_train_grads(
+            medium_stack, targets_norm, omega=medium.omega_0, sin_impl="fast"), 10, dev)
+        print(f"  siren_train_grads medium N={N_FITS} fast, device ms per step by kernel (torch.profiler, 10 steps):")
+        for name, entry in split.items():
+            short = name.replace("(anonymous namespace)::", "").split("(")[0]
+            print(f"    {entry['ms']:.4f} ms x{entry['calls']:g}  {short}")
+        print(f"  siren_train_grads medium N={N_FITS}: {train_flops / 1e9:.1f} GFLOP, kernel "
+              f"{train_ms['medium'][0]:.4f} ms ({train_flops / train_ms['medium'][0] / 1e9:.1f} TFLOP/s counted once), "
+              f"bound {report['siren_train_grads']['bound_ms']:.4f} ms ({report['siren_train_grads']['bound_by']}, "
+              f"TF32 peak), three-pass floor {3 * train_flops / PEAK_TF32_FLOPS * 1e3:.4f} ms, the fp32 SIMT "
+              f"kernel's {TRAIN_SIMT_MS} ms (its earlier version, same card type)")
 
         # A short training run on the GPU against the same run on the CPU.
         small_t = np.random.default_rng(3).standard_normal((4, 256, 16)).astype(np.float32)
@@ -861,7 +900,18 @@ def main() -> int:
             e_packed = siren_quant_cuda.pack_resident_params(
                 stack_for(CONFIGS_BY_NAME["small"], PLAN_NETS, seed=14).params(), "int4_g128")
             mla_args = dict(kv_lora_rank=MLA_R, scale=MLA_SCALE)
+            large = CONFIGS_BY_NAME["large"]
+            large_stack = stack_for(large, N_FITS, seed=15)
+            large_targets = torch.from_numpy(medium_targets).to(dev, torch.float32)
+            large_targets = normalize_targets(large_targets)[0].contiguous()
+
+            def train_large():
+                loss, grads = siren_train_cuda.siren_train_grads(large_stack, large_targets, omega=large.omega_0,
+                                                                 sin_impl="fast")
+                return loss, grads.flat
+
             twice = {
+                "2A": train_large,
                 "2D": lambda: siren_attention_cuda.siren_attention_decode_fused(k, v, *stats, q, 30.0, 8192),
                 "2F": lambda: siren_quant_cuda.siren_attention_decode_quant(
                     None, None, *stats, q, SCHEMES[1], 30.0, 8192, packed=packed, return_stats=True),
@@ -878,7 +928,8 @@ def main() -> int:
                 a, b = run(), run()
                 same = all(torch.equal(x, y) for x, y in zip(a if isinstance(a, tuple) else (a,),
                                                              b if isinstance(b, tuple) else (b,)))
-                what = {"2G": "H=16, S_buf=32768", "2H": "H=16, S_buf=32768",
+                what = {"2A": f"large, N={N_FITS}, S={SEQ_LEN}, the sweep's targets, loss and grads",
+                        "2G": "H=16, S_buf=32768", "2H": "H=16, S_buf=32768",
                         "2E": f"{PLAN_NETS} small nets, S={PLAN_SEQ_LEN}, int4_g128"}.get(name, "T=16")
                 print(f"  {name} twice on the same inputs ({what}): bit-identical = {same}")
                 assert same

@@ -1,5 +1,5 @@
 // Shared pieces of the SIREN kernels: the flat parameter layout and the
-// block-wide fp32 products over a row tile kept in shared memory.
+// block-wide fp32 product over a row tile kept in shared memory.
 //
 // Every helper is called by all threads of a block and splits its work over
 // them in a fixed way, so each output is summed by one thread in one order:
@@ -10,7 +10,7 @@
 
 namespace siren {
 
-constexpr int kThreads = 256;     // threads per decode block (training: 256 or 512)
+constexpr int kThreads = 256;     // threads per decode block
 constexpr int kRowsPerItem = 8;   // rows one thread carries through a product
 
 // The per-network layout of models/siren.py:SirenStack. w_0 (1, H), b_0 (H),
@@ -80,74 +80,6 @@ template <typename Epi>
 __device__ __forceinline__ void matmul_rows(
     const float* __restrict__ in, int K, const float* __restrict__ W, int J, int rows, Epi epi) {
     matmul_rows(in, K, DenseW{W, J}, J, rows, epi);
-}
-
-// out[r][k] = sum_j in[r][j] * W[k][j]: the product with W transposed, for
-// the backward pass. in is shared (rows x J, J % 4 == 0), W global (K x J),
-// out shared (rows x K). A lane reads a float4 along its own row of W.
-__device__ __forceinline__ void matmul_rows_t(
-    const float* __restrict__ in, int J, const float* __restrict__ W, int K, int rows,
-    float* __restrict__ out) {
-    const int items = (rows / kRowsPerItem) * K;
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-        const int k = it % K;
-        const int r0 = (it / K) * kRowsPerItem;
-        const float* in0 = in + r0 * J;
-        const float* wk = W + (size_t)k * J;
-        float acc[kRowsPerItem];
-#pragma unroll
-        for (int q = 0; q < kRowsPerItem; ++q) acc[q] = 0.f;
-        for (int j = 0; j < J; j += 4) {
-            const float4 w = __ldg(reinterpret_cast<const float4*>(wk + j));
-#pragma unroll
-            for (int q = 0; q < kRowsPerItem; ++q) {
-                const float4 a = *reinterpret_cast<const float4*>(in0 + q * J + j);
-                acc[q] = fmaf(a.x, w.x, acc[q]);
-                acc[q] = fmaf(a.y, w.y, acc[q]);
-                acc[q] = fmaf(a.z, w.z, acc[q]);
-                acc[q] = fmaf(a.w, w.w, acc[q]);
-            }
-        }
-#pragma unroll
-        for (int q = 0; q < kRowsPerItem; ++q) out[(r0 + q) * K + k] = acc[q];
-    }
-}
-
-// G[k][j] = (first ? 0 : G[k][j]) + sum_r A[r][k] * B[r][j]: a weight
-// gradient over one row tile, added into a global slot that only this block
-// owns. A is shared (rows x K, K % 4 == 0), B shared (rows x J).
-__device__ __forceinline__ void accum_outer(
-    const float* __restrict__ A, int K, const float* __restrict__ B, int J, int rows,
-    float* __restrict__ G, bool first) {
-    const int items = (K / 4) * J;
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-        const int j = it % J;
-        const int k0 = (it / J) * 4;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int r = 0; r < rows; ++r) {
-            const float4 a = *reinterpret_cast<const float4*>(A + r * K + k0);
-            const float bv = B[r * J + j];
-            acc[0] = fmaf(a.x, bv, acc[0]);
-            acc[1] = fmaf(a.y, bv, acc[1]);
-            acc[2] = fmaf(a.z, bv, acc[2]);
-            acc[3] = fmaf(a.w, bv, acc[3]);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            float* g = G + (size_t)(k0 + q) * J + j;
-            *g = first ? acc[q] : *g + acc[q];
-        }
-    }
-}
-
-// G[j] = (first ? 0 : G[j]) + sum_r B[r][j]: a bias gradient over one tile.
-__device__ __forceinline__ void accum_colsum(
-    const float* __restrict__ B, int J, int rows, float* __restrict__ G, bool first) {
-    for (int j = threadIdx.x; j < J; j += blockDim.x) {
-        float acc = 0.f;
-        for (int r = 0; r < rows; ++r) acc += B[r * J + j];
-        G[j] = first ? acc : G[j] + acc;
-    }
 }
 
 }  // namespace siren

@@ -1,10 +1,13 @@
-"""Fused SIREN training step: CUDA kernel 2A (``csrc/siren_train.cu``) and its plain twin.
+"""SIREN training step: CUDA kernel 2A (``csrc/siren_train.cu``) and its plain twin.
 
 ``siren_train_grads`` returns the per-fit MSE loss and every parameter
 gradient of N SIRENs, as ``nerf_attention_tpu/ops/siren_train_pallas.py:
 siren_train_grads`` does. A tensor on the CPU goes to
 ``siren_train_grads_plain`` (``torch.autograd`` over the plain forward); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises. The kernel is a fixed sequence of
+tensor-core products (3xTF32, fp32 accumulation) through one workspace that
+this wrapper allocates; it takes hidden widths that are multiples of 64 and 3
+to 8 layers.
 """
 
 from __future__ import annotations
@@ -16,45 +19,41 @@ import torch
 
 from nerf_attention_tpu_torch.models.siren import SirenStack, positions, siren_apply_maybe_fm
 from nerf_attention_tpu_torch.ops import _build
-from nerf_attention_tpu_torch.ops._launch import as_stack, check_stack, chunking, multipliers
+from nerf_attention_tpu_torch.ops._launch import as_stack, check_stack, multipliers
 from nerf_attention_tpu_torch.ops.fastmath import resolve_sin
 
-# Launches of the CUDA kernel; plain evaluations are not counted.
+# Launches of the CUDA kernel (one per step); plain evaluations are not counted.
 launches = {"siren_train_grads": 0}
 
-# A block's limit on sm_90, less the kernel's static arrays (red[512], xs[16]).
-_MAX_SMEM_BYTES = 232_448 - (512 + 16) * 4
+MAX_LAYERS = 8  # csrc/siren_train.cu: kMaxLayers
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("siren_train")
+    lib.siren_train_workspace.restype = ctypes.c_longlong
+    lib.siren_train_workspace.argtypes = [ctypes.c_int] * 6
     lib.siren_train_launch.restype = ctypes.c_int
     lib.siren_train_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    for name in ("siren_train_smem_bytes", "siren_train_tile_rows", "siren_train_plan"):
-        getattr(lib, name).restype = ctypes.c_int
-    lib.siren_train_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.siren_train_tile_rows.argtypes = []
-    lib.siren_train_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
     return lib
 
 
+def check_train_shape(hidden: int, d_out: int, n_layers: int) -> None:
+    """Raise on a network the kernel does not take (it never falls back)."""
+    if hidden % 64 or d_out % 4 or not 3 <= n_layers <= MAX_LAYERS:
+        raise ValueError(
+            f"kernel 2A takes hidden widths that are multiples of 64, out widths that are multiples of 4 and "
+            f"3-{MAX_LAYERS} layers; got hidden {hidden}, out {d_out}, {n_layers} layers"
+        )
+
+
 @functools.cache
-def _plan(hidden: int, d_out: int, n_layers: int, fast: bool, device_index: int) -> tuple[int, int]:
-    """(threads per block, blocks the whole card holds at once) for a network shape."""
-    lib = _library()
-    threads, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(lib, lib.siren_train_plan(hidden, d_out, n_layers, int(fast), threads, per_sm),
-                 "siren_train_plan")
-    if per_sm.value < 1:
-        raise RuntimeError(f"siren_train_kernel cannot be resident with {n_layers} layers of width {hidden}")
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return threads.value, per_sm.value * sms
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _as_input_kind(params, grads: SirenStack):
@@ -103,24 +102,24 @@ def siren_train_grads(params, targets_norm: torch.Tensor, *, omega: float,
     if (targets_norm.device != stack.flat.device or targets_norm.dtype != torch.float32
             or not targets_norm.is_contiguous()):
         raise ValueError("targets must be contiguous float32 on the params' device")
-    lib = _library()
-    if lib.siren_train_smem_bytes(hidden, d_out, n_layers) > _MAX_SMEM_BYTES:
-        raise ValueError(f"{n_layers} layers of width {hidden} need more shared memory than a block has")
-
+    check_train_shape(hidden, d_out, n_layers)
+    if stack.flat.data_ptr() % 16:
+        raise ValueError("params must start on a 16-byte boundary")
     device = stack.flat.device
-    threads, slots = _plan(hidden, d_out, n_layers, sin_impl == "fast", device.index or 0)
-    chunks, rows_per_chunk = chunking(n, seq_len, lib.siren_train_tile_rows(), slots)
+    lib = _library()
+    sms = _sms(device.index if device.index is not None else torch.cuda.current_device())
+    floats = lib.siren_train_workspace(n, seq_len, hidden, d_out, n_layers, sms)
+    if floats < 0:
+        raise ValueError(f"kernel 2A does not take {n} fits of {seq_len} rows")
     mult = multipliers(hidden, fm_mult, device)
-    p = stack.flat.shape[1]
-    scratch = torch.empty(n, chunks, p, dtype=torch.float32, device=device)
-    loss_part = torch.empty(n, chunks, dtype=torch.float32, device=device)
+    workspace = torch.empty(floats, dtype=torch.float32, device=device)
     grads = torch.empty_like(stack.flat)
     loss = torch.empty(n, dtype=torch.float32, device=device)
     status = lib.siren_train_launch(
         stack.flat.data_ptr(), targets_norm.data_ptr(), None if mult is None else mult.data_ptr(),
-        scratch.data_ptr(), loss_part.data_ptr(), grads.data_ptr(), loss.data_ptr(),
-        n, seq_len, hidden, d_out, n_layers, float(omega), int(sin_impl == "fast"),
-        chunks, rows_per_chunk, threads, torch.cuda.current_stream(device).cuda_stream,
+        workspace.data_ptr(), grads.data_ptr(), loss.data_ptr(),
+        n, seq_len, hidden, d_out, n_layers, float(omega), int(sin_impl == "fast"), sms,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(lib, status, "siren_train_launch")
     launches["siren_train_grads"] += 1

@@ -17,7 +17,7 @@ import torch
 from nerf_attention_tpu_torch.models.siren import SirenStack, init_siren
 from nerf_attention_tpu_torch.ops import siren_cuda, siren_train_cuda
 from nerf_attention_tpu_torch.parallel.sweep import fit_batch, normalize_targets
-from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME
+from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME, SIRENConfig
 
 torch.set_num_threads(1)
 
@@ -94,6 +94,89 @@ def test_train_kernel_fm_and_ragged(cuda_device, seq_len, fm, tol):
     assert siren_train_cuda.launches["siren_train_grads"] == before + 1
     torch.testing.assert_close(loss, want_loss, **TRAIN_TOL[tol]["loss"])
     torch.testing.assert_close(grads.flat, want_grads.flat, **TRAIN_TOL[tol]["grads"])
+
+
+# Kernel 2A's shapes: every width and depth the sweep's configs use, in each
+# combination, at small N; then the plan path's shape and a ragged FM case.
+TRAIN_SHAPES = [(h, layers) for h in (64, 128, 256, 512) for layers in (3, 4, 5)]
+
+
+def _train_case(config, n, seq_len, device, seed, d_out=D, **kw):
+    """Kernel 2A and its plain version on the same nets and targets; asserts one launch."""
+    gen = torch.Generator().manual_seed(seed)
+    cpu = SirenStack.from_params(init_siren(config, d_out, generator=gen, n=n))
+    stack = SirenStack(cpu.flat.to(device), cpu.dims)
+    targets = torch.randn(n, seq_len, d_out, generator=torch.Generator().manual_seed(seed + 1)).to(device)
+    targets_norm = normalize_targets(targets)[0].contiguous()
+    before = siren_train_cuda.launches["siren_train_grads"]
+    got = siren_train_cuda.siren_train_grads(stack, targets_norm, omega=config.omega_0, **kw)
+    assert siren_train_cuda.launches["siren_train_grads"] == before + 1
+    want = siren_train_cuda.siren_train_grads_plain(stack, targets_norm, omega=config.omega_0, **kw)
+    return stack, targets_norm, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden, n_layers", TRAIN_SHAPES, ids=[f"H{h}-L{l}" for h, l in TRAIN_SHAPES])
+@pytest.mark.parametrize("sin_impl", ["exact", "fast"])
+def test_train_kernel_every_width_and_depth(cuda_device, hidden, n_layers, sin_impl):
+    config = SIRENConfig(hidden, n_layers - 2, 30.0, f"h{hidden}")
+    _, _, (loss, grads), (want_loss, want_grads) = _train_case(config, 3, 2048, cuda_device, hidden + n_layers,
+                                                               sin_impl=sin_impl)
+    assert grads.dims == want_grads.dims and len(grads.dims) == n_layers
+    torch.testing.assert_close(loss, want_loss, **TRAIN_TOL[sin_impl]["loss"])
+    torch.testing.assert_close(grads.flat, want_grads.flat, **TRAIN_TOL[sin_impl]["grads"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sin_impl", ["fast", "exact"])
+def test_train_kernel_at_the_plan_shape(cuda_device, sin_impl):
+    """128 `small` nets at S=512, as the plan-rollout tool fits them."""
+    _, _, (loss, grads), (want_loss, want_grads) = _train_case(CONFIGS_BY_NAME["small"], 128, 512, cuda_device, 5,
+                                                               sin_impl=sin_impl)
+    torch.testing.assert_close(loss, want_loss, **TRAIN_TOL[sin_impl]["loss"])
+    torch.testing.assert_close(grads.flat, want_grads.flat, **TRAIN_TOL[sin_impl]["grads"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sin_impl", ["exact", "fast"])
+def test_train_kernel_ragged_fm(cuda_device, sin_impl):
+    """S=300 (not a multiple of the 64-row tile) with FM x64."""
+    _, _, (loss, grads), (want_loss, want_grads) = _train_case(CONFIGS_BY_NAME["medium"], 4, 300, cuda_device, 6,
+                                                               sin_impl=sin_impl, fm_mult=64.0)
+    torch.testing.assert_close(loss, want_loss, **TRAIN_TOL["fm"]["loss"])
+    torch.testing.assert_close(grads.flat, want_grads.flat, **TRAIN_TOL["fm"]["grads"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_out", [16, 100], ids=["D16", "D100"])
+def test_train_kernel_output_width_not_a_multiple_of_64(cuda_device, d_out):
+    """The output layer padded to 64 or 128 columns in the workspace, zeros past D."""
+    _, _, (loss, grads), (want_loss, want_grads) = _train_case(CONFIGS_BY_NAME["small"], 5, 300, cuda_device, 8,
+                                                               d_out=d_out)
+    torch.testing.assert_close(loss, want_loss, **TRAIN_TOL["exact"]["loss"])
+    torch.testing.assert_close(grads.flat, want_grads.flat, **TRAIN_TOL["exact"]["grads"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config_name, n, seq_len, fm", [("large", 4, 2048, None), ("small", 128, 512, None),
+                                                         ("tiny", 3, 300, 64.0)], ids=["large", "plan", "ragged_fm"])
+def test_train_kernel_is_bit_identical_twice(cuda_device, config_name, n, seq_len, fm):
+    config = CONFIGS_BY_NAME[config_name]
+    stack, targets_norm, (loss, grads), _ = _train_case(config, n, seq_len, cuda_device, 7, sin_impl="fast",
+                                                        fm_mult=fm)
+    loss2, grads2 = siren_train_cuda.siren_train_grads(stack, targets_norm, omega=config.omega_0, sin_impl="fast",
+                                                       fm_mult=fm)
+    assert torch.equal(loss, loss2) and torch.equal(grads.flat, grads2.flat)
+
+
+@pytest.mark.cuda
+def test_train_kernel_rejects_shapes_it_does_not_take(cuda_device):
+    for config, d_out in ((SIRENConfig(72, 2, 30.0, "odd"), D), (SIRENConfig(64, 0, 30.0, "shallow"), D),
+                          (SIRENConfig(64, 7, 30.0, "too_deep"), D), (CONFIGS_BY_NAME["tiny"], 18)):
+        stack = SirenStack.from_params(init_siren(config, d_out, generator=torch.Generator(), n=2, device=cuda_device))
+        targets = torch.zeros(2, 128, d_out, device=cuda_device)
+        with pytest.raises(ValueError, match="multiples of|divisible by"):
+            siren_train_cuda.siren_train_grads(stack, targets, omega=30.0)
 
 
 @pytest.mark.cuda

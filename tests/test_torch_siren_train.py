@@ -1,6 +1,8 @@
 """Training kernel 2A: the port's plain version against the Pallas kernel
-(interpret mode), and the kernel's row chunking. The CUDA kernel is held to
-the plain version in tests/test_torch_cuda.py."""
+(interpret mode); the CUDA kernel's arithmetic (layer-wise, every product in
+3xTF32), emulated here on the CPU, against the same; and the row chunking of
+the split-S kernels. The CUDA kernel itself is held to the plain version in
+tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -12,9 +14,10 @@ from nerf_attention_tpu.models.siren import init_siren as jax_init_siren
 from nerf_attention_tpu.ops.siren_train_pallas import siren_train_grads as jax_train_grads
 from nerf_attention_tpu.types import SIRENConfig as JaxConfig
 from nerf_attention_tpu_torch.interop import params_from_jax
-from nerf_attention_tpu_torch.models.siren import SirenStack
+from nerf_attention_tpu_torch.models.siren import SirenStack, fm_frequency_multipliers
 from nerf_attention_tpu_torch.ops import siren_train_cuda
 from nerf_attention_tpu_torch.ops._launch import chunking
+from nerf_attention_tpu_torch.ops.fastmath import fast_sincos
 from nerf_attention_tpu_torch.parallel.sweep import normalize_targets
 
 torch.set_num_threads(1)
@@ -59,6 +62,74 @@ def test_plain_matches_pallas(hidden, layers, seq_len, tile, sin_impl, fm, tol):
         assert gw.shape == ww.shape and gb.shape == wb.shape
         np.testing.assert_allclose(gw.numpy(), np.asarray(ww), **tol["grads"])
         np.testing.assert_allclose(gb.numpy(), np.asarray(wb), **tol["grads"])
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round to TF32 as the kernel does: nearest, ties away from zero, 10 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)  # -0x2000 is 0xFFFFE000 as int32
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as csrc/tf32_mma.cuh computes it: a_lo b_hi + a_hi b_lo + a_hi b_hi, fp32 sums."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _kernel_step(params, targets, *, omega, sin_impl, fm_mult):
+    """Loss and grads by csrc/siren_train.cu's sequence: layer-wise forward
+    keeping h_i and the sine's derivative g_i, then the explicit backward,
+    every product through ``_matmul_3xtf32``."""
+    params = [(torch.tensor(w), torch.tensor(b)) for w, b in params]
+    targets = torch.from_numpy(targets)
+    _, seq_len, d_out = targets.shape
+    hidden = params[0][0].shape[-1]
+    sincos = fast_sincos if sin_impl == "fast" else (lambda z: (torch.sin(z), torch.cos(z)))
+    x = (torch.arange(seq_len, dtype=torch.float32) / max(seq_len - 1, 1))[None, :, None]
+    scale = omega * (torch.ones(hidden) if fm_mult is None else fm_frequency_multipliers(hidden, fm_mult))
+    w0, b0 = params[0]
+    h, c = sincos(scale * (x * w0 + b0[:, None, :]))
+    hs, gs = [h], [scale * c]
+    for w, b in params[1:-1]:
+        h, c = sincos(omega * (_matmul_3xtf32(hs[-1], w) + b[:, None, :]))
+        hs.append(h)
+        gs.append(omega * c)
+    wf, bf = params[-1]
+    err = _matmul_3xtf32(hs[-1], wf) + bf[:, None, :] - targets
+    loss = (err * err).sum(dim=(1, 2)) / (seq_len * d_out)
+    da = (2.0 / (seq_len * d_out)) * err
+    grads = [None] * len(params)
+    for i in range(len(params) - 1, 0, -1):
+        grads[i] = (_matmul_3xtf32(hs[i - 1].transpose(1, 2), da), da.sum(dim=1))
+        da = _matmul_3xtf32(da, params[i][0].transpose(1, 2)) * gs[i - 1]
+    grads[0] = ((x * da).sum(dim=1, keepdim=True), da.sum(dim=1))
+    return loss, grads
+
+
+@pytest.mark.parametrize("hidden, layers, seq_len, tile, sin_impl, fm, tol", CASES, ids=IDS)
+def test_kernel_arithmetic_in_3xtf32_matches_pallas(hidden, layers, seq_len, tile, sin_impl, fm, tol):
+    params, targets_norm = _inputs(hidden, layers, seq_len, seed=1)
+    want_loss, want_grads = jax_train_grads(
+        [(jnp.asarray(w), jnp.asarray(b)) for w, b in params], jnp.asarray(targets_norm),
+        omega=30.0, tile=tile, interpret=True, sin_impl=sin_impl, fm_mult=fm,
+    )
+    loss, grads = _kernel_step(params, targets_norm, omega=30.0, sin_impl=sin_impl, fm_mult=fm)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss), **tol["loss"])
+    assert len(grads) == len(params)
+    for (gw, gb), (ww, wb) in zip(grads, want_grads):
+        assert gw.shape == ww.shape and gb.shape == wb.shape
+        np.testing.assert_allclose(gw.numpy(), np.asarray(ww), **tol["grads"])
+        np.testing.assert_allclose(gb.numpy(), np.asarray(wb), **tol["grads"])
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32's spacing in [1, 2)
+    x = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 2 - 2.0 ** -20, -(1.0 + ulp / 2), 3.0 + 0.3 * ulp])
+    want = torch.tensor([1.0, 1.0 + ulp, 1.0, -(1.0 + ulp), 3.0])
+    assert torch.equal(_tf32(x), want)
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    assert torch.all((_tf32(y) - y).abs() <= y.abs() * 2.0 ** -11)
 
 
 def test_cpu_wrapper_takes_the_plain_version_for_lists_and_stacks():

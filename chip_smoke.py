@@ -283,7 +283,12 @@ kernel's own launch count), its bound at the bf16 peak with the sine epilogue's 
 (tools/bf16_epilogue_floor.py), its launches the study's and the root tools'. The `(bf16)` entries of 2D, 2F and 2E are their bf16
 modes at phase 3's timing shapes, with fp32_ms (the fp32 mode beside it) and the launches of phase 3's
 drive; 2D's bound is at the bf16 peak, 2E's and 2F's at the TF32 peak (their products are fp32, as
-in JAX: bf16 activations times fp32 weights), 2E's output bytes halved.
+in JAX: bf16 activations times fp32 weights), 2E's output bytes halved. 2E's and 2F's bf16 launches go
+through their Hopper kernels (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu: three exact bf16
+pieces a weight on wgmma), asserted by those kernels' own launch counts; their entries add stack_ms (the
+layer stack's kAct16 instance on the same call) and epilogue_floor_fast_ms (their sines' epilogue alone,
+tools/bf16_epilogue_floor.py); the floor of their products as three bf16 passes at the bf16 peak is printed
+on phase 3's lines and kept out of the kernels' line, being worked out rather than measured.
 
 It ends with the kernels' JSON line, the nvidia-smi line and the JSON result.
 The TPU package is not imported.
@@ -342,7 +347,8 @@ LOGZ_ATOL = 1e-4  # the log-partition m + log l of the (m, l) stats
 ATTN_SEQ_LENS = (2048, 32768)
 SCHEMES = ("int8_g32", "int6_g64", "int4_g128")
 LIBRARIES = ("siren_decode", "siren_decode_bf16", "siren_train", "siren_attention", "siren_attention_bf16",
-             "siren_attention_act16", "kv_quant_attention", "mla_absorbed_attention")
+             "siren_attention_act16", "siren_decode_act16", "siren_attention_wgmma", "kv_quant_attention",
+             "mla_absorbed_attention")
 HOST_LIBRARY = "synthkv"  # csrc/synthkv.cpp, the synthetic cache generator, built with g++
 
 # H100 SXM data sheet: fp32 outside the tensor cores, bf16 and TF32 on the tensor cores (dense), device memory.
@@ -1407,8 +1413,9 @@ def uncounted():
 
     saved = [(counts, dict(counts)) for counts in (
         siren_train_cuda.launches, siren_cuda.launches, siren_cuda.bf16_launches, siren_cuda.wgmma_launches,
-        siren_attention_cuda.launches, siren_attention_cuda.bf16_launches, siren_quant_cuda.launches, siren_quant_cuda.bf16_launches,
-        kv_quant_cuda.launches, mla_absorbed_cuda.launches, mla_quant_cuda.launches)]
+        siren_attention_cuda.launches, siren_attention_cuda.bf16_launches, siren_quant_cuda.launches,
+        siren_quant_cuda.bf16_launches, siren_quant_cuda.wgmma_launches, kv_quant_cuda.launches,
+        mla_absorbed_cuda.launches, mla_quant_cuda.launches)]
     try:
         yield
     finally:
@@ -3043,11 +3050,15 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
     those outputs is then held against its plain version (``check_ulps``) and against the fp32 mode's output on
     the same inputs (``check_mode``); 2F and 2E in bf16 on packed weights equal themselves on the
     host-dequantized weights shipped dense (max abs diff 0); each mode is timed beside its plain version and its
-    fp32 mode (``fp32_ms``). Returns their report entries and their launches."""
+    fp32 mode (``fp32_ms``), and 2E / 2F beside the layer stack's kAct16 instance and their floors. 2E's and
+    2F's launches all go through their Hopper kernels, asserted by ``siren_quant_cuda.wgmma_launches``. Returns
+    their report entries and their launches."""
     import torch
 
     from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+    from nerf_attention_tpu_torch.ops import siren_cuda
     from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+    from nerf_attention_tpu_torch.tools import bf16_epilogue_floor
     from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME
 
     bf16, omega = torch.bfloat16, 30.0
@@ -3064,8 +3075,13 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
     dec += [(f"medium (the ladder's keys) N={NUM_HEADS} S={c[1]} fast bf16", omega, c[1], c[7][0])
             for c in attn if c[1] in BF16_DECODE_LENS and c[2]["causal"] is False]
 
+    # Every shape here is within the width rule: 2E's and 2F's bf16 launches all go through the Hopper kernels
+    # (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu), asserted by their own counts.
+    assert all(sq.attention_route(k.dims[0][1], k.dims[-1][1], q.shape[1]) == "wgmma" for *_, k, _, _, q, _ in attn)
+    assert all(sq.bf16_route(p[1][0][2], p[1][-1][2]) == "wgmma" for _, _, _, p in dec)
+
     # ---- the modes' path: each entry point once per shape ----
-    bf16_counts = (sa.bf16_launches, sq.bf16_launches)
+    bf16_counts = (sa.bf16_launches, sq.bf16_launches, sq.wgmma_launches)
     for counts in bf16_counts:
         for key in counts:
             counts[key] = 0
@@ -3077,11 +3093,15 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
     out_e = [sq.siren_decode_batch_quant(None, BF16_SCHEME, om, s, packed=p, sin_impl="fast", compute_dtype=bf16)
              for _, om, s, p in dec]
     torch.cuda.synchronize()
-    launches = {f"{key} (bf16)": counts[key] for counts in bf16_counts for key in counts}
+    launches = {f"{key} (bf16)": counts[key] for counts in bf16_counts[:2] for key in counts}
     want = {"siren_attention_decode_fused (bf16)": len(attn), "siren_attention_decode_quant (bf16)": len(attn),
             "siren_decode_batch_quant (bf16)": len(dec)}
-    print(f"  the bf16 modes' entry points once per shape: launches {launches}, expected {want}")
+    wgmma = dict(sq.wgmma_launches)
+    want_wgmma = {"siren_decode_batch_quant": len(dec), "siren_attention_decode_quant": len(attn)}
+    print(f"  the bf16 modes' entry points once per shape: launches {launches}, expected {want}; of 2E's and 2F's, "
+          f"through csrc/siren_decode_act16.cu and csrc/siren_attention_wgmma.cu {wgmma}, expected {want_wgmma}")
     assert launches == want, (launches, want)
+    assert wgmma == want_wgmma, (wgmma, want_wgmma)
 
     err = {"2D": 0.0, "2F": 0.0, "2E": 0.0}
     gains = {"2D": [], "2F": [], "2E": []}
@@ -3137,6 +3157,27 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
         emacs, _ = siren_macs(plan_nets.dims)
         run_e = lambda: sq.siren_decode_batch_quant(None, BF16_SCHEME, small.omega_0, PLAN_SEQ_LEN,
                                                     packed=packed_e, sin_impl="fast", compute_dtype=bf16)
+        # 2E's and 2F's Hopper kernels beside the layer stack's kAct16 instance on the same calls (the kernel these
+        # modes took before them), and each kernel's own floors: its products as three bf16 passes at the bf16 peak,
+        # and its sines' epilogue alone (tools/bf16_epilogue_floor.py, the kernels' own hidden_epilogue) over the
+        # call's sines.
+        k_rec, v_rec, keep_f = sq.resident_records(packed, dev)
+        e_rec, keep_e = sq.packed_records(*packed_e, dev)
+        stack_f = lambda: sa.attention_launch(k_rec, v_rec, len(k.dims), k.dims[0][1], *stats, q, omega, seq_len,
+                                              return_stats=False, fm_mult=None, compute_dtype=bf16,
+                                              round_weights=False, **kw)
+        stack_e = lambda: siren_cuda.decode_launch(e_rec, len(plan_nets.dims), PLAN_NETS, small.hidden_features,
+                                                   HEAD_DIM, dev, small.omega_0, PLAN_SEQ_LEN, "fast", None,
+                                                   compute_dtype=bf16, round_weights=False)
+        sines_f = NUM_HEADS * seq_len * 2 * (len(k.dims) - 1) * k.dims[0][1]
+        sines_e = PLAN_NETS * PLAN_SEQ_LEN * (len(plan_nets.dims) - 1) * small.hidden_features
+        floors = {"2F": bf16_epilogue_floor.floor(sines_f, dev), "2E": bf16_epilogue_floor.floor(sines_e, dev)}
+        own = {"2F": dict(stack_ms=median_ms(stack_f, 50), bf16_passes_ms=3 * attn_flops / PEAK_BF16_FLOPS * 1e3,
+                          epilogue_floor_fast_ms=floors["2F"]["fast"]["probe_ms"], sines=sines_f),
+               "2E": dict(stack_ms=median_ms(stack_e, 50),
+                          bf16_passes_ms=3 * 2 * emacs * PLAN_SEQ_LEN * PLAN_NETS / PEAK_BF16_FLOPS * 1e3,
+                          epilogue_floor_fast_ms=floors["2E"]["fast"]["probe_ms"], sines=sines_e)}
+        del keep_f, keep_e
         report = {
             "siren_attention_decode_fused (bf16)": dict(
                 max_abs_err=err["2D"], shape=shape, library_ms=None,
@@ -3157,9 +3198,9 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
                                                                                  compute_dtype=bf16, **kw), 20),
                 fp32_ms=median_ms(lambda: sq.siren_attention_decode_quant(None, None, *stats, q, BF16_SCHEME, omega,
                                                                           seq_len, packed=packed, **kw), 50),
-                # bf16 activations times fp32 weights: fp32 products, on the tensor cores in 3xTF32 as the fp32
-                # mode's
-                **tc_bound(attn_flops, sum(sq.resident_param_bytes(p[0]) for p in packed) + small_bytes)),
+                # bf16 activations times fp32 weights: fp32 products at the TF32 peak (JAX's products are fp32)
+                **tc_bound(attn_flops, sum(sq.resident_param_bytes(p[0]) for p in packed) + small_bytes),
+                **own["2F"]),
             "siren_decode_batch_quant (bf16)": dict(
                 max_abs_err=err["2E"], library_ms=None,
                 shape=f"small, N={PLAN_NETS}, S={PLAN_SEQ_LEN}, D={HEAD_DIM}, fast sine, {BF16_SCHEME} weights, "
@@ -3171,13 +3212,19 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
                                                                       packed=packed_e, sin_impl="fast"), 50),
                 # as the fp32 mode's bound, the output written in bf16: half its bytes
                 **tc_bound(2 * emacs * PLAN_SEQ_LEN * PLAN_NETS,
-                           sq.resident_param_bytes(packed_e[0]) + PLAN_NETS * PLAN_SEQ_LEN * HEAD_DIM * 2)),
+                           sq.resident_param_bytes(packed_e[0]) + PLAN_NETS * PLAN_SEQ_LEN * HEAD_DIM * 2),
+                **own["2E"]),
         }
     print(f"  controls: the fp32 mode's relative RMS from the bf16 plain versions over the bf16 mode's, least per "
           f"mode: " + ", ".join(f"{m} {min(g):.1f}x" for m, g in gains.items()))
     for name, r in report.items():
         print(f"  {name} ({r['shape']}): kernel {r['ms']:.4f} ms (fp32 mode {r['fp32_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if "stack_ms" in r:
+            print(f"    the Hopper kernel against the layer stack's kAct16 instance on the same call: {r['ms']:.4f} / "
+                  f"{r['stack_ms']:.4f} ms; its floors: three bf16 passes {r['bf16_passes_ms']:.4f} ms, the sine "
+                  f"epilogue of its {r['sines']} sines {r['epilogue_floor_fast_ms']:.4f} ms (fast sine, "
+                  "tools/bf16_epilogue_floor.py)")
     return report, launches
 
 
@@ -4296,13 +4343,13 @@ def main() -> int:
                                      "nerf_attention_tpu/ops/siren_quant_pallas.py:285"),
         "siren_attention_decode_fused (bf16)": ("nerf_attention_tpu_torch/csrc/siren_attention.cuh",
                                                 "nerf_attention_tpu/ops/siren_attention_pallas.py:151"),
-        "siren_attention_decode_quant (bf16)": ("nerf_attention_tpu_torch/csrc/siren_attention.cuh",
+        "siren_attention_decode_quant (bf16)": ("nerf_attention_tpu_torch/csrc/siren_attention_wgmma.cu",
                                                 "nerf_attention_tpu/ops/siren_quant_pallas.py:512"),
-        "siren_decode_batch_quant (bf16)": ("nerf_attention_tpu_torch/csrc/siren_decode.cu",
+        "siren_decode_batch_quant (bf16)": ("nerf_attention_tpu_torch/csrc/siren_decode_act16.cu",
                                             "nerf_attention_tpu/ops/siren_quant_pallas.py:285"),
     }
-    keys = ("max_abs_err", "ms", "device_ms", "cold_device_ms", "plain_ms", "fp32_ms", "bound_ms", "bound_by",
-            "epilogue_floor_ms", "epilogue_floor_fast_ms",
+    keys = ("max_abs_err", "ms", "device_ms", "cold_device_ms", "plain_ms", "fp32_ms", "stack_ms", "bound_ms",
+            "bound_by", "epilogue_floor_ms", "epilogue_floor_fast_ms",
             "library_ms", "shape", "fp32_bound_ms", "device_shape", "device_bound_ms", "device_library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],

@@ -36,9 +36,12 @@ struct State {
     float* alpha;  // (T,) rescale of the last update
     float* sc;     // (T, rows) scores, then weights
 
-    __device__ void init(int T, int D) const {
-        for (int e = threadIdx.x; e < T * D; e += blockDim.x) acc[e] = 0.f;
-        for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    __device__ void init(int T, int D) const { init(T, D, threadIdx.x, blockDim.x); }
+
+    // The same, by the `n` threads tid = 0 .. n - 1 of a part of the block (the wgmma kernels' consumers).
+    __device__ void init(int T, int D, int tid, int n) const {
+        for (int e = tid; e < T * D; e += n) acc[e] = 0.f;
+        for (int t = tid; t < T; t += n) {
             m[t] = neg_inf();
             l[t] = 0.f;
         }
@@ -104,9 +107,10 @@ __device__ __forceinline__ void softmax_update(const State& st, int T, int rows)
 // taking tile rows l, l + 32, ... in order. Turns sc into the weights
 // p = exp(s - m_new), updates m and l, and leaves the rescale of the old
 // state in alpha. A row with nothing allowed so far keeps m = -inf, l = 0.
-__device__ __forceinline__ void softmax_update_rows(const State& st, int T, int rows) {
-    const int lane = threadIdx.x % 32;
-    for (int t = threadIdx.x / 32; t < T; t += blockDim.x / 32) {
+// By the n threads tid = 0 .. n - 1 (whole warps) of a part of the block; the overload below by all of it.
+__device__ __forceinline__ void softmax_update_rows(const State& st, int T, int rows, int tid, int n) {
+    const int lane = tid % 32;
+    for (int t = tid / 32; t < T; t += n / 32) {
         float* sc = st.sc + t * rows;
         float mx = neg_inf();
         for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, sc[r]);
@@ -130,35 +134,55 @@ __device__ __forceinline__ void softmax_update_rows(const State& st, int T, int 
     }
 }
 
+__device__ __forceinline__ void softmax_update_rows(const State& st, int T, int rows) {
+    softmax_update_rows(st, T, rows, threadIdx.x, blockDim.x);
+}
+
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+__device__ __forceinline__ float as_float(float x) { return x; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // acc[t][j] = alpha[t] * acc[t][j] + sum_r p[t][r] * v[r][j] (v row stride ld).
 // BF16: p and v rounded to bf16 first, the p.V of the JAX kernels'
 // compute_dtype=bfloat16 mode (siren_attention_pallas.py:121-123); a product
 // of two bf16 values is exact in fp32, so the sums are fp32 as there. l stays
-// the sum of the unrounded p, as there.
-template <bool BF16 = false>
-__device__ __forceinline__ void acc_update(const State& st, const float* __restrict__ v, int ld,
-                                           int T, int D, int rows) {
-    for (int e = threadIdx.x; e < T * D; e += blockDim.x) {
+// the sum of the unrounded p, as there. v fp32, or bf16 (values already rounded,
+// which BF16 rounds again to themselves); by the n threads tid = 0 .. n - 1.
+template <bool BF16, typename V>
+__device__ __forceinline__ void acc_update(const State& st, const V* __restrict__ v, int ld, int T, int D,
+                                           int rows, int tid, int n) {
+    for (int e = tid; e < T * D; e += n) {
         const int t = e / D;
         const int j = e - t * D;
         const float* p = st.sc + t * rows;
         float a = st.acc[e] * st.alpha[t];
         for (int r = 0; r < rows; ++r)
-            a = BF16 ? fmaf(round_bf16(p[r]), round_bf16(v[r * ld + j]), a) : fmaf(p[r], v[r * ld + j], a);
+            a = BF16 ? fmaf(round_bf16(p[r]), round_bf16(as_float(v[r * ld + j])), a)
+                     : fmaf(p[r], as_float(v[r * ld + j]), a);
         st.acc[e] = a;
     }
 }
 
+template <bool BF16 = false>
+__device__ __forceinline__ void acc_update(const State& st, const float* __restrict__ v, int ld,
+                                           int T, int D, int rows) {
+    acc_update<BF16>(st, v, ld, T, D, rows, (int)threadIdx.x, (int)blockDim.x);
+}
+
 // The block's partial state for its chunk: ml (T, 2) = (m, l), acc (T, D).
+// By the n threads tid = 0 .. n - 1 of a part of the block; the overload below by all of it.
 __device__ __forceinline__ void write_partial(const State& st, int T, int D, float* __restrict__ ml,
-                                              float* __restrict__ acc) {
-    for (int e = threadIdx.x; e < T * D; e += blockDim.x) acc[e] = st.acc[e];
-    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+                                              float* __restrict__ acc, int tid, int n) {
+    for (int e = tid; e < T * D; e += n) acc[e] = st.acc[e];
+    for (int t = tid; t < T; t += n) {
         ml[2 * t] = st.m[t];
         ml[2 * t + 1] = st.l[t];
     }
+}
+
+__device__ __forceinline__ void write_partial(const State& st, int T, int D, float* __restrict__ ml,
+                                              float* __restrict__ acc) {
+    write_partial(st, T, D, ml, acc, threadIdx.x, blockDim.x);
 }
 
 // One block per head: merges the C chunks' partials in chunk order.

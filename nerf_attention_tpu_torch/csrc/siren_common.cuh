@@ -261,6 +261,34 @@ __host__ __device__ inline StackShape stack_shape(int H, int D, int rows, int ex
     return sh;
 }
 
+// Calls f(value) with the layer's weight reader for net n, value(k, j) = W[k][j] in fp32 (k < rows, j < cols):
+// the dense fp32 value, or code x scale rounded once (GroupW) for packed codes. The one dispatch on the weight
+// kind: the stack's slab loader and the wgmma kernels' piece split (siren_wgmma.cuh) both read through it.
+template <typename F>
+__device__ __forceinline__ void layer_weights(const LayerDesc& d, int n, F f) {
+    const int rows = (int)d.rows, cols = (int)d.cols, group = (int)d.group, qmax = (int)d.qmax;
+    const float* scale = at<float>(d.scale, d.scale_stride, n);
+    const int half = (rows + 1) / 2;
+    switch ((int)d.kind) {
+        case kInt8:
+            f(group_weights(Int8Codes{at<signed char>(d.w, d.w_stride, n), cols}, scale, cols, group));
+            break;
+        case kInt4:
+            f(group_weights(Int4Codes{{at<unsigned char>(d.w, d.w_stride, n), cols, half}, qmax}, scale, cols,
+                            group));
+            break;
+        case kInt6:
+            f(group_weights(Int6Codes{{at<unsigned char>(d.w, d.w_stride, n), cols, half},
+                                      at<unsigned char>(d.w2, d.w2_stride, n), (rows + 3) / 4, qmax},
+                            scale, cols, group));
+            break;
+        default: {
+            const float* w = at<float>(d.w, d.w_stride, n);
+            f([&](int k, int j) { return __ldg(w + (size_t)k * cols + j); });
+        }
+    }
+}
+
 // One layer's weights as slabs: fill(s, k0, c0, n_cols) puts W[k0 + r][c0 +
 // c], r < sk, c < n_cols (a multiple of 8), into s[r * lds + c], zero outside the
 // layer's rows and cols: a packed slab dequantized, a dense one whose rows
@@ -293,30 +321,7 @@ struct LayerSlabs {
     }
 
     __device__ void fill(float* s, int lds, int sk, int k0, int c0, int n_cols) const {
-        const int rows = (int)d.rows, cols = (int)d.cols, group = (int)d.group, qmax = (int)d.qmax;
-        const float* scale = at<float>(d.scale, d.scale_stride, n);
-        const int half = (rows + 1) / 2;
-        switch ((int)d.kind) {
-            case kInt8:
-                store(s, lds, sk, k0, c0, n_cols,
-                      group_weights(Int8Codes{at<signed char>(d.w, d.w_stride, n), cols}, scale, cols, group));
-                break;
-            case kInt4:
-                store(s, lds, sk, k0, c0, n_cols,
-                      group_weights(Int4Codes{{at<unsigned char>(d.w, d.w_stride, n), cols, half}, qmax}, scale,
-                                    cols, group));
-                break;
-            case kInt6:
-                store(s, lds, sk, k0, c0, n_cols,
-                      group_weights(Int6Codes{{at<unsigned char>(d.w, d.w_stride, n), cols, half},
-                                              at<unsigned char>(d.w2, d.w2_stride, n), (rows + 3) / 4, qmax},
-                                    scale, cols, group));
-                break;
-            default: {
-                const float* w = at<float>(d.w, d.w_stride, n);
-                store(s, lds, sk, k0, c0, n_cols, [&](int k, int j) { return __ldg(w + (size_t)k * cols + j); });
-            }
-        }
+        layer_weights(d, n, [&](auto value) { store(s, lds, sk, k0, c0, n_cols, value); });
     }
 
     __device__ __forceinline__ float bias(int j) const {

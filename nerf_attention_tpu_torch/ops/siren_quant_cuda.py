@@ -27,24 +27,51 @@ fp32 and only the activations are rounded to bf16 after each sine; 2E
 returns bf16, 2F rounds p and V to bf16 for p.V and returns fp32. So 2F in
 bf16 on packed weights equals 2F in bf16 on the host-dequantized weights
 shipped dense (``scheme="fp32"``) bit for bit, not 2D's bf16 mode, which
-rounds the weights too.
+rounds the weights too. On the card, nets that ``bf16_route`` gives
+"wgmma" (2F: ``attention_route``) take the Hopper kernels of this mode,
+``csrc/siren_decode_act16.cu`` (2E) and ``csrc/siren_attention_wgmma.cu``
+(2F): each weight split into three exact bf16 pieces (``csrc/siren_wgmma.cuh``),
+wgmma products, counted in ``wgmma_launches``; other nets keep the layer
+stack's ``kAct16`` instance.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import numpy as np
 import torch
 
-from nerf_attention_tpu_torch.ops._launch import check_dims, layer_record
+from nerf_attention_tpu_torch.ops import _build
+from nerf_attention_tpu_torch.ops._launch import check_dims, chunking, layer_record, multipliers
+from nerf_attention_tpu_torch.ops.fastmath import resolve_sin
 from nerf_attention_tpu_torch.ops.quantize import parse_scheme, quantize_params, split_scheme
-from nerf_attention_tpu_torch.ops.siren_attention_cuda import attention_launch, siren_attention_decode_plain
-from nerf_attention_tpu_torch.ops.siren_cuda import decode_launch, precision, siren_decode_plain
+from nerf_attention_tpu_torch.ops.siren_attention_cuda import (
+    _check_queries,
+    _flat_stat,
+    attention_launch,
+    siren_attention_decode_plain,
+)
+from nerf_attention_tpu_torch.ops.siren_cuda import (
+    WGMMA_TILE_ROWS,
+    bf16_route,
+    decode_launch,
+    precision,
+    siren_decode_plain,
+    wgmma_chunking,
+)
 from nerf_attention_tpu_torch.utils.device import resolve_device
 
 # Launches of each CUDA kernel; plain evaluations are not counted.
 launches = {"siren_decode_batch_quant": 0, "siren_attention_decode_quant": 0}
-# Of those, the launches in the bf16 mode.
+# Of those, the launches in the bf16 mode, and of these the ones the Hopper kernels of that mode took
+# (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu).
 bf16_launches = {"siren_decode_batch_quant": 0, "siren_attention_decode_quant": 0}
+wgmma_launches = {"siren_decode_batch_quant": 0, "siren_attention_decode_quant": 0}
+# csrc/siren_attention_wgmma.cu: kMaxQueries and kMaxHeadDim (its partial scores and V tile).
+WGMMA_MAX_QUERIES, WGMMA_MAX_HEAD_DIM = 16, 128
 
 _OPS_PER_LAYER = {"dense": 2, "int8": 3, "int4": 3, "int6": 4}
 
@@ -187,20 +214,20 @@ def packed_records(ops, layout, device) -> tuple[list[int], list[torch.Tensor]]:
         kind, rows, cols = entry[:3]
         if li == 0 and kind != "dense":
             raise ValueError("layer 0 must ship as dense fp32")
+        # Per-net strides: a contiguous (N, ...) operand's first stride (no per-call views of net 0).
         bias = layer_ops[-1]
-        b_stride = bias[0].numel()
         if kind == "dense":
             w = layer_ops[0]
-            records += layer_record(kind, rows, cols, w.data_ptr(), w[0].numel(), bias.data_ptr(), b_stride)
+            records += layer_record(kind, rows, cols, w.data_ptr(), w.stride(0), bias.data_ptr(), bias.stride(0))
             continue
         group, qmax = entry[3:]
         codes, scale = layer_ops[0], layer_ops[-2]
         extra = {}
         if kind == "int6":
-            extra = dict(w2=layer_ops[1].data_ptr(), w2_stride=layer_ops[1][0].numel())
-        records += layer_record(kind, rows, cols, codes.data_ptr(), codes[0].numel(), bias.data_ptr(),
-                                 b_stride, group=group, qmax=qmax, scale=scale.data_ptr(),
-                                 scale_stride=scale[0].numel(), **extra)
+            extra = dict(w2=layer_ops[1].data_ptr(), w2_stride=layer_ops[1].stride(0))
+        records += layer_record(kind, rows, cols, codes.data_ptr(), codes.stride(0), bias.data_ptr(),
+                                 bias.stride(0), group=group, qmax=qmax, scale=scale.data_ptr(),
+                                 scale_stride=scale.stride(0), **extra)
     return records, keep
 
 
@@ -215,6 +242,115 @@ def resident_records(packed, device) -> tuple[list[int], list[int], list[torch.T
     k_records, k_keep = packed_records(k_ops, k_layout, device)
     v_records, v_keep = packed_records(v_ops, v_layout, device)
     return k_records, v_records, k_keep + v_keep
+
+
+def attention_route(hidden: int, d: int, n_queries: int) -> str:
+    """The kernel of 2F's bf16 mode for nets of these widths and ``n_queries`` queries: ``"wgmma"``
+    (csrc/siren_attention_wgmma.cu) where ``bf16_route`` takes the nets, ``d`` is at most
+    ``WGMMA_MAX_HEAD_DIM`` and ``n_queries`` at most ``WGMMA_MAX_QUERIES``, else ``"stack"``
+    (siren_attention_act16.cu, the layer stack)."""
+    fits = d <= WGMMA_MAX_HEAD_DIM and n_queries <= WGMMA_MAX_QUERIES
+    return "wgmma" if fits and bf16_route(hidden, d) == "wgmma" else "stack"
+
+
+def bind_act16(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of csrc/siren_decode_act16.cu or csrc/siren_attention_wgmma.cu, with its entry points'
+    C types set."""
+    lib.siren_act16_pieces_bytes.restype = ctypes.c_longlong
+    lib.siren_act16_pieces_bytes.argtypes = [ctypes.c_int] * 4
+    if hasattr(lib, "siren_decode_act16_launch"):
+        lib.siren_decode_act16_launch.restype = ctypes.c_int
+        lib.siren_decode_act16_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    if hasattr(lib, "siren_attention_wgmma_launch"):
+        lib.siren_attention_wgmma_launch.restype = ctypes.c_int
+        lib.siren_attention_wgmma_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.siren_attention_wgmma_smem.restype = ctypes.c_int
+        lib.siren_attention_wgmma_smem.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+@functools.cache
+def _act16_library(name: str) -> ctypes.CDLL:
+    return bind_act16(_build.load_library(name))
+
+
+@functools.cache
+def _act16_plan(n: int, seq_len: int, attention: bool, device_index: int) -> tuple[int, int]:
+    """(chunks, tiles per chunk) of a launch of n nets (2E) or heads (2F) over seq_len rows: one block an SM (their
+    shared memory), tiles of ``WGMMA_TILE_ROWS`` rows; 2E's as 2B/2C's bf16 kernel (``wgmma_chunking``), 2F's as
+    the attention kernels' (``chunking``)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    if not attention:
+        return wgmma_chunking(n, seq_len, sms)
+    chunks, rows_per_chunk = chunking(n, seq_len, WGMMA_TILE_ROWS, sms)
+    return chunks, rows_per_chunk // WGMMA_TILE_ROWS
+
+
+def _pieces(lib: ctypes.CDLL, hidden: int, d_out: int, n_layers: int, nets: int, device) -> torch.Tensor:
+    """The device area the launch's split pass writes every net's bf16 weight pieces into."""
+    return torch.empty(lib.siren_act16_pieces_bytes(hidden, d_out, n_layers, nets), dtype=torch.uint8, device=device)
+
+
+def act16_decode_launch(records: list[int], n_layers: int, n: int, hidden: int, d_out: int, device: torch.device,
+                        omega: float, seq_len: int, sin_impl: str, fm_mult: float | None) -> torch.Tensor:
+    """Launch csrc/siren_decode_act16.cu (2E's bf16 mode on Hopper) over n described nets: (n, seq_len, d_out) bf16,
+    counted in ``wgmma_launches``."""
+    resolve_sin(sin_impl)  # validates the name
+    if seq_len < 1:
+        raise ValueError(f"seq_len must be positive, got {seq_len}")
+    chunks, tiles_per_chunk = _act16_plan(n, seq_len, False, device.index or 0)
+    lib = _act16_library("siren_decode_act16")
+    pieces = _pieces(lib, hidden, d_out, n_layers, n, device)
+    mult = multipliers(hidden, fm_mult, device)
+    out = torch.empty(n, seq_len, d_out, dtype=torch.bfloat16, device=device)
+    desc = (ctypes.c_longlong * len(records))(*records)
+    status = lib.siren_decode_act16_launch(
+        desc, n_layers, None if mult is None else mult.data_ptr(), pieces.data_ptr(), out.data_ptr(), n, seq_len,
+        hidden, d_out, float(omega), int(sin_impl == "fast"), chunks, tiles_per_chunk,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(lib, status, "siren_decode_act16_launch")
+    wgmma_launches["siren_decode_batch_quant"] += 1
+    return out
+
+
+def act16_attention_launch(k_records: list[int], v_records: list[int], n_layers: int, hidden: int,
+                           k_mean, k_std, v_mean, v_std, q: torch.Tensor, omega: float, seq_len: int, *,
+                           sin_impl: str, fm_mult: float | None, causal: bool, return_stats: bool):
+    """Launch csrc/siren_attention_wgmma.cu (2F's bf16 mode on Hopper) over two described net stacks: (N, T, D)
+    fp32, with (m, l) when asked, counted in ``wgmma_launches``."""
+    resolve_sin(sin_impl)  # validates the name
+    n, t, d = q.shape
+    device = q.device
+    if q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError("q must be contiguous float32")
+    _check_queries(seq_len, t, causal)
+    stats = [_flat_stat(x, n, d, device) for x in (k_mean, k_std, v_mean, v_std)]
+    chunks, tiles_per_chunk = _act16_plan(n, seq_len, True, device.index or 0)
+    lib = _act16_library("siren_attention_wgmma")
+    pieces = _pieces(lib, hidden, d, n_layers, 2 * n, device)
+    mult = multipliers(hidden, fm_mult, device)
+    part_ml = torch.empty(n, chunks, t, 2, dtype=torch.float32, device=device)
+    part_acc = torch.empty(n, chunks, t, d, dtype=torch.float32, device=device)
+    out = torch.empty(n, t, d, dtype=torch.float32, device=device)
+    m = torch.empty(n, t, dtype=torch.float32, device=device) if return_stats else None
+    l = torch.empty(n, t, dtype=torch.float32, device=device) if return_stats else None
+    k_desc = (ctypes.c_longlong * len(k_records))(*k_records)
+    v_desc = (ctypes.c_longlong * len(v_records))(*v_records)
+    status = lib.siren_attention_wgmma_launch(
+        k_desc, v_desc, n_layers, *(s.data_ptr() for s in stats), q.data_ptr(),
+        None if mult is None else mult.data_ptr(), pieces.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+        n, seq_len, t, hidden, d, float(omega), float(1.0 / math.sqrt(d)), int(sin_impl == "fast"), int(causal),
+        chunks, tiles_per_chunk, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(lib, status, "siren_attention_wgmma_launch")
+    wgmma_launches["siren_attention_decode_quant"] += 1
+    return (out, m, l) if return_stats else out
 
 
 def _decode_dims(layout) -> tuple[int, int, int]:
@@ -249,8 +385,12 @@ def siren_decode_batch_quant(params, scheme: str, omega: float, seq_len: int, *,
                                               compute_dtype=compute_dtype)
     hidden, d_out, n_layers = _decode_dims(layout)
     records, keep = packed_records(ops, layout, device)
-    out = decode_launch(records, n_layers, ops[0].shape[0], hidden, d_out, device, omega, seq_len, sin_impl, fm_mult,
-                        compute_dtype=compute_dtype, round_weights=False)
+    if compute_dtype == torch.bfloat16 and bf16_route(hidden, d_out) == "wgmma":
+        out = act16_decode_launch(records, n_layers, ops[0].shape[0], hidden, d_out, device, omega, seq_len,
+                                  sin_impl, fm_mult)
+    else:
+        out = decode_launch(records, n_layers, ops[0].shape[0], hidden, d_out, device, omega, seq_len, sin_impl,
+                            fm_mult, compute_dtype=compute_dtype, round_weights=False)
     del keep  # the launch is queued on the stream; the caching allocator holds the blocks
     launches["siren_decode_batch_quant"] += 1
     bf16_launches["siren_decode_batch_quant"] += compute_dtype == torch.bfloat16
@@ -295,8 +435,14 @@ def siren_attention_decode_quant(k_params, v_params, k_mean, k_std, v_mean, v_st
                                                   **kw)
     k_layout = packed[0][1]
     k_records, v_records, keep = resident_records(packed, q.device) if records is None else records
-    result = attention_launch(k_records, v_records, len(k_layout), k_layout[0][2], k_mean, k_std,
-                              v_mean, v_std, q, omega, seq_len, round_weights=False, **kw)
+    hidden, d_out, n_layers = _decode_dims(k_layout)
+    if compute_dtype == torch.bfloat16 and attention_route(hidden, d_out, q.shape[1]) == "wgmma":
+        del kw["compute_dtype"]
+        result = act16_attention_launch(k_records, v_records, n_layers, hidden, k_mean, k_std, v_mean, v_std, q,
+                                        omega, seq_len, **kw)
+    else:
+        result = attention_launch(k_records, v_records, n_layers, hidden, k_mean, k_std, v_mean, v_std, q, omega,
+                                  seq_len, round_weights=False, **kw)
     del keep  # the launch is queued on the stream; the caching allocator holds the blocks
     launches["siren_attention_decode_quant"] += 1
     bf16_launches["siren_attention_decode_quant"] += compute_dtype == torch.bfloat16

@@ -8,17 +8,20 @@ checkouts to each other bit for bit, and 2B/2C's bf16 mode beside fp32.
 ``--out``: every fp32 output at ``DECODE_CASES`` (2B/2C) and ``TRAIN_CASES``
 (2A's loss and gradients), 2B/2C's bf16 mode at ``BF16_CASES`` (each beside
 its plain version's output), and with ``--attention`` at ``ATTENTION_CASES``
-(2D, 2F with its stats, 2E; fp32, and again in their bf16 modes), saved with
-``torch.save``. Run as a file, it uses the kernels of whichever checkout
-``PYTHONPATH`` names first, so a parent commit unpacked by ``git archive`` is
-run by the same cases. ``--compare``: whether two such files are equal bit for
-bit, case by case of the first (exit status 1 if any differs), and for each
-``BF16_CASES`` case both hold, each file's kernel output in ulps against its
-plain version's: what a case that changed on purpose is held to. ``--modes``: the bf16 mode at N 1, 40 and 512 (medium, S=2048)
-against its plain version, in bf16 ulps of the largest |output|, and each
-mode's time: the median of 3 samples of back-to-back calls between CUDA
-events, per call. Inputs are random from fixed seeds; on the CPU the wrappers
-run their plain versions.
+(2D, 2F with its stats, 2E; fp32, and again in their bf16 modes, 2E's and 2F's
+beside their plain versions' outputs), saved with ``torch.save``. Run as a
+file, it uses the kernels of whichever checkout ``PYTHONPATH`` names first, so
+a parent commit unpacked by ``git archive`` is run by the same cases.
+``--compare``: whether two such files are equal bit for bit, case by case of
+the first (exit status 1 if any differs), and for each case saved beside its
+plain version's output that both hold, each file's kernel output in ulps
+against that plain output: what a case that changed on purpose is held to.
+``--modes``: 2B/2C's bf16 mode at N 1, 40 and 512 (medium, S=2048), and with
+``--attention`` 2E's and 2F's bf16 modes at ``ACT16_MODES`` (their table
+shapes), against their plain versions in bf16 ulps of the largest |output|,
+and each mode's time: the median of 3 samples of back-to-back calls between
+CUDA events, per call. Inputs are random from fixed seeds; on the CPU the
+wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ TRAIN_CASES = {
     "2A large N=8 fast": (512, 2, 8, 2048, "fast"),
     "2A medium N=6 S=8192 fast": (256, 2, 6, 8192, "fast"),
 }
-# name: (heads, queries, S, causal, scheme or None for 2D); medium nets, fast sine. 2E: "decode" in the name.
+# name: (heads, queries, S, causal, scheme or None for 2D[, (hidden, hidden layers)]); medium nets unless given,
+# fast sine. 2E: "decode" in the name.
 ATTENTION_CASES = {
     "2D N=8 S=2048 T=1": (8, 1, 2048, False, None),
     "2D N=8 S=32768 T=1": (8, 1, 32768, False, None),
@@ -72,7 +76,11 @@ ATTENTION_CASES = {
     "2F int4_g128 N=8 S=2048 T=1": (8, 1, 2048, False, "int4_g128"),
     "2F int8_g32 N=8 S=300 T=16 causal": (8, 16, 300, True, "int8_g32"),
     "2E decode int4_g128 N=40 S=2048": (40, 0, 2048, False, "int4_g128"),
+    "2E decode int4_g128 small N=128 S=512": (128, 0, 512, False, "int4_g128", (128, 1)),
 }
+# 2E's and 2F's bf16 modes timed by --modes --attention, at PERF.md's table shapes: name: (nets or heads, S, hidden,
+# hidden layers); int4_g128 weights, fast sine, 2F with T=1 over the whole window.
+ACT16_MODES = {"2E small N=128 S=512": (128, 512, 128, 1), "2F medium N=8 S=2048 T=1": (8, 2048, 256, 2)}
 MODE_NETS = (1, 40, 512)
 MODE_SHAPE = (256, 2, 2048)  # medium nets (hidden, hidden layers) at S=2048
 
@@ -105,28 +113,38 @@ def outputs(device) -> dict[str, list[torch.Tensor]]:
 
 
 def attention_outputs(device) -> dict[str, list[torch.Tensor]]:
-    """Every ``ATTENTION_CASES`` output in fp32 (2F's with its m and l), and in the bf16 mode (the name + " bf16"),
-    on the host."""
-    from nerf_attention_tpu_torch.ops import siren_attention_cuda, siren_quant_cuda
+    """Every ``ATTENTION_CASES`` output in fp32 (2F's with its m and l), and in the bf16 mode (the name + " bf16";
+    2E's and 2F's followed by their plain version's output), on the host."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda, siren_quant_cuda as sq
 
     out = {}
-    for i, (name, (n, t, seq_len, causal, scheme)) in enumerate(ATTENTION_CASES.items()):
+    for i, (name, (n, t, seq_len, causal, scheme, *widths)) in enumerate(ATTENTION_CASES.items()):
+        hidden, layers = widths[0] if widths else (256, 2)
         gen = torch.Generator().manual_seed(400 + i)
-        k, v = (_stack(256, 2, n, device, seed=500 + 2 * i + j) for j in range(2))
+        k, v = (_stack(hidden, layers, n, device, seed=500 + 2 * i + j) for j in range(2))
         stats = [(torch.rand(n, 1, D, generator=gen) + 0.5).to(device) for _ in range(4)]
         q = torch.randn(n, t, D, generator=gen).to(device)
         for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+            bf16 = dtype == torch.bfloat16
             if "decode" in name:
-                out[name + suffix] = [siren_quant_cuda.siren_decode_batch_quant(
-                    k.params(), scheme, 30.0, seq_len, sin_impl="fast", compute_dtype=dtype).cpu()]
+                packed = sq.pack_resident_params(k.params(), scheme)
+                kw = dict(sin_impl="fast", compute_dtype=dtype)
+                out[name + suffix] = [sq.siren_decode_batch_quant(None, scheme, 30.0, seq_len, packed=packed,
+                                                                  **kw).cpu()]
+                if bf16:
+                    out[name + suffix].append(sq.siren_decode_batch_quant_plain(packed, 30.0, seq_len, **kw).cpu())
                 continue
             kw = dict(sin_impl="fast", causal=causal, compute_dtype=dtype)
             if scheme is None:
                 out[name + suffix] = [siren_attention_cuda.siren_attention_decode_fused(k, v, *stats, q, 30.0, seq_len,
                                                                                         **kw).cpu()]
             else:
-                out[name + suffix] = [x.cpu() for x in siren_quant_cuda.siren_attention_decode_quant(
-                    k.params(), v.params(), *stats, q, scheme, 30.0, seq_len, return_stats=True, **kw)]
+                packed = tuple(sq.pack_resident_params(x.params(), scheme) for x in (k, v))
+                out[name + suffix] = [x.cpu() for x in sq.siren_attention_decode_quant(
+                    None, None, *stats, q, scheme, 30.0, seq_len, packed=packed, return_stats=True, **kw)]
+                if bf16:
+                    out[name + suffix].append(sq.siren_attention_decode_quant_plain(packed, *stats, q, 30.0, seq_len,
+                                                                                   **kw).cpu())
     return out
 
 
@@ -140,9 +158,16 @@ def _ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item() / (2.0**-8 * want.float().abs().max().item())
 
 
+def _with_plain() -> list[str]:
+    """The cases saved with their plain version's output last: BF16_CASES, and 2E's and 2F's bf16 cases."""
+    return [*BF16_CASES, *(f"{name} bf16" for name, case in ATTENTION_CASES.items() if case[4] is not None)]
+
+
 def against_plain(a: dict, b: dict) -> dict[str, tuple[float, float]]:
-    """Per ``BF16_CASES`` case both files hold: each one's kernel output in ulps against its plain version's."""
-    return {name: (_ulps(*a[name]), _ulps(*b[name])) for name in BF16_CASES if name in a and name in b}
+    """Per case saved beside its plain version's output that both files hold: each one's kernel output in ulps
+    against that plain output."""
+    return {name: (_ulps(a[name][0], a[name][-1]), _ulps(b[name][0], b[name][-1])) for name in _with_plain()
+            if name in a and name in b}
 
 
 def modes(device) -> list[dict]:
@@ -168,13 +193,45 @@ def modes(device) -> list[dict]:
     return rows
 
 
+def act16_modes(device) -> list[dict]:
+    """2E's and 2F's bf16 modes at ACT16_MODES against their plain versions, and their times beside their fp32
+    modes'."""
+    from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+
+    rows = []
+    for i, (name, (n, seq_len, hidden, layers)) in enumerate(ACT16_MODES.items()):
+        k, v = (_stack(hidden, layers, n, device, seed=700 + 2 * i + j) for j in range(2))
+        if name.startswith("2E"):
+            packed = sq.pack_resident_params(k.params(), "int4_g128")
+            call = lambda dtype: sq.siren_decode_batch_quant(  # noqa: E731
+                None, "int4_g128", 30.0, seq_len, packed=packed, sin_impl="fast", compute_dtype=dtype)
+            want = sq.siren_decode_batch_quant_plain(packed, 30.0, seq_len, sin_impl="fast",
+                                                     compute_dtype=torch.bfloat16)
+        else:
+            gen = torch.Generator().manual_seed(800 + i)
+            stats = [(torch.rand(n, 1, D, generator=gen) + 0.5).to(device) for _ in range(4)]
+            q = torch.randn(n, 1, D, generator=gen).to(device)
+            packed = tuple(sq.pack_resident_params(x.params(), "int4_g128") for x in (k, v))
+            kw = dict(sin_impl="fast", causal=False)
+            call = lambda dtype: sq.siren_attention_decode_quant(  # noqa: E731
+                None, None, *stats, q, "int4_g128", 30.0, seq_len, packed=packed, compute_dtype=dtype, **kw)
+            want = sq.siren_attention_decode_quant_plain(packed, *stats, q, 30.0, seq_len, compute_dtype=torch.bfloat16,
+                                                         **kw)
+        row = {"case": name, "ulps_vs_plain": _ulps(call(torch.bfloat16), want)}
+        reps = 50 if device.type == "cuda" else 1
+        for dtype in (torch.float32, torch.bfloat16):
+            row[f"{str(dtype)[6:]}_ms"] = float(np.median(per_launch_ms(lambda: call(dtype), reps, 3, device)))
+        rows.append(row)
+    return rows
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=str, default=None, help="save every case's fp32 outputs here")
     parser.add_argument("--compare", type=str, nargs=2, default=None, metavar=("A", "B"))
-    parser.add_argument("--modes", action="store_true", help="the bf16 mode against its plain version and fp32")
+    parser.add_argument("--modes", action="store_true", help="the bf16 modes against their plain versions and fp32")
     parser.add_argument("--attention", action="store_true",
-                        help="--out also holds 2D, 2E and 2F's outputs, fp32 and bf16")
+                        help="--out also holds 2D, 2E and 2F's outputs, fp32 and bf16; --modes also times 2E and 2F")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
     if args.compare:
@@ -192,7 +249,7 @@ def main(argv: list[str] | None = None) -> int:
         torch.save(saved, args.out)
         print(f"{len(saved)} cases saved to {args.out}")
     if args.modes:
-        for row in modes(device):
+        for row in modes(device) + (act16_modes(device) if args.attention else []):
             print(row)
     return 0
 

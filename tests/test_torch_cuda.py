@@ -1076,3 +1076,178 @@ def test_head_policy_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         for name, curve in w["policies"].items():
             np.testing.assert_allclose(got["payloads"][scheme]["policies"][name]["output_cosine"],
                                        curve["output_cosine"], atol=1e-4)
+
+
+# Kernels 2E's and 2F's bf16 modes on Hopper (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu): three
+# bf16 pieces a weight on wgmma, held to the plain versions at BF16_ULPS, and bit for bit to themselves over the
+# host-dequantized weights shipped dense and on a second run.
+@pytest.mark.cuda
+@pytest.mark.parametrize("config_name, scheme, n, seq_len, sin_impl, fm", [
+    ("small", "int4_g128", 128, 512, "fast", None), ("medium", "int8_g32", 40, 2048, "exact", None),
+    ("tiny", "int6_g64", 8, 777, "fast", None), ("deep", "int8_g32_l0fp32", 4, 1000, "exact", None),
+    ("medium", "fp32", 3, 300, "exact", 64.0), ("medium", "int4_g32", 1, 32768, "fast", None),
+], ids=["plan-shape", "medium-int8", "tiny-int6-ragged", "deep-l0fp32", "dense-fm", "S32768"])
+def test_act16_decode_kernel_matches_plain(cuda_device, config_name, scheme, n, seq_len, sin_impl, fm):
+    from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+
+    config = CONFIGS_BY_NAME[config_name]
+    packed = sq.pack_resident_params(_stack(config_name, n, cuda_device, seed=n + seq_len).params(), scheme)
+    kw = dict(sin_impl=sin_impl, fm_mult=fm, compute_dtype=torch.bfloat16)
+    assert siren_cuda.bf16_route(config.hidden_features, D) == "wgmma"
+    before = dict(sq.wgmma_launches)
+    got = sq.siren_decode_batch_quant(None, scheme, config.omega_0, seq_len, packed=packed, **kw)
+    torch.cuda.synchronize()
+    assert sq.wgmma_launches["siren_decode_batch_quant"] == before["siren_decode_batch_quant"] + 1
+    want = sq.siren_decode_batch_quant_plain(packed, config.omega_0, seq_len, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, seq_len, D)
+    _bf16_close(got, want)
+    dense = sq.pack_resident_params(sq.unpack_resident_params(*packed), "fp32")
+    assert torch.equal(got, sq.siren_decode_batch_quant(None, "fp32", config.omega_0, seq_len, packed=dense, **kw))
+    assert torch.equal(got, sq.siren_decode_batch_quant(None, scheme, config.omega_0, seq_len, packed=packed, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden, layers, d_out, route", [
+    (96, 2, 20, "wgmma"), (100, 1, 4, "wgmma"), (96, 2, 18, "stack"), (72, 1, 3, "stack"), (512, 2, 128, "stack"),
+], ids=["padded-D20", "hidden100-D4", "D18-stack", "D3-stack", "large-stack"])
+def test_act16_decode_kernel_widths_by_rule(cuda_device, hidden, layers, d_out, route):
+    """Nets the width rule sends elsewhere keep the layer stack's kAct16 instance (no wgmma launch counted); both
+    routes hold to the plain version and to themselves over the dense dequantized weights."""
+    from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+
+    gen = torch.Generator().manual_seed(hidden)
+    params = init_siren(SIRENConfig(hidden, layers, 30.0, "odd"), d_out, generator=gen, n=6)
+    packed = sq.pack_resident_params([(w.to(cuda_device), b.to(cuda_device)) for w, b in params], "int4_g128")
+    assert siren_cuda.bf16_route(hidden, d_out) == route
+    kw = dict(sin_impl="fast", compute_dtype=torch.bfloat16)
+    before = dict(sq.wgmma_launches)
+    got = sq.siren_decode_batch_quant(None, "int4_g128", 30.0, 300, packed=packed, **kw)
+    torch.cuda.synchronize()
+    assert sq.wgmma_launches["siren_decode_batch_quant"] == before["siren_decode_batch_quant"] + (route == "wgmma")
+    _bf16_close(got, sq.siren_decode_batch_quant_plain(packed, 30.0, 300, **kw))
+    dense = sq.pack_resident_params(sq.unpack_resident_params(*packed), "fp32")
+    assert torch.equal(got, sq.siren_decode_batch_quant(None, "fp32", 30.0, 300, packed=dense, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, t, seq_len, causal, scheme, sin_impl, fm", [
+    (8, 1, 2048, False, "int4_g128", "fast", None), (8, 16, 300, True, "int8_g32", "fast", None),
+    (4, 16, 2048, True, "int4_g128", "fast", 64.0), (4, 1, 32768, True, "int4_g128", "fast", None),
+    (2, 4, 200, True, "int6_g64", "exact", None), (3, 3, 129, False, "fp32", "fast", None),
+    (2, 1, 1, True, "int4_g128", "fast", None),
+], ids=["ladder", "T16-ragged-causal", "T16-fm", "S32768-causal", "exact-int6", "dense-ragged", "S1"])
+def test_act16_attention_kernel_matches_plain(cuda_device, n, t, seq_len, causal, scheme, sin_impl, fm):
+    """2F in bf16 on csrc/siren_attention_wgmma.cu: the output within BF16_ULPS of the plain version, (m, l) to its
+    log-partition, bit for bit to itself over the dense dequantized weights and on a second run."""
+    from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+
+    k_stack, v_stack, *rest = _attention_args(n, t, cuda_device, seed=seq_len + t)
+    packed = tuple(sq.pack_resident_params(s.params(), scheme) for s in (k_stack, v_stack))
+    kw = dict(sin_impl=sin_impl, fm_mult=fm, causal=causal, compute_dtype=torch.bfloat16)
+    assert sq.attention_route(CONFIGS_BY_NAME["medium"].hidden_features, D, t) == "wgmma"
+    before = dict(sq.wgmma_launches)
+    o, m, l = sq.siren_attention_decode_quant(None, None, *rest, scheme, 30.0, seq_len, packed=packed,
+                                              return_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert sq.wgmma_launches["siren_attention_decode_quant"] == before["siren_attention_decode_quant"] + 1
+    want_o, want_m, want_l = sq.siren_attention_decode_quant_plain(packed, *rest, 30.0, seq_len, return_stats=True,
+                                                                   **kw)
+    _bf16_close(o, want_o)
+    torch.testing.assert_close(m + torch.log(l), want_m + torch.log(want_l), atol=LOGZ_ATOL, rtol=0)
+    dense = tuple(sq.pack_resident_params(sq.unpack_resident_params(*p), "fp32") for p in packed)
+    twin = sq.siren_attention_decode_quant(None, None, *rest, "fp32", 30.0, seq_len, packed=dense, return_stats=True,
+                                           **kw)
+    assert all(torch.equal(a, b) for a, b in zip((o, m, l), twin))
+    assert torch.equal(o, sq.siren_attention_decode_quant(None, None, *rest, scheme, 30.0, seq_len, packed=packed,
+                                                          **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden, d, t, route", [
+    (256, 128, 17, "stack"), (512, 128, 1, "stack"), (96, 20, 4, "wgmma"), (96, 18, 2, "stack"), (64, 256, 1, "stack"),
+], ids=["T17-stack", "large-stack", "hidden96-D20", "D18-stack", "D256-stack"])
+def test_act16_attention_kernel_route_by_rule(cuda_device, hidden, d, t, route):
+    """Calls attention_route sends elsewhere keep the layer stack's kAct16 instance (no wgmma launch counted);
+    both routes hold to the plain version."""
+    from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+    from nerf_attention_tpu_torch.tools.measure_attention_decode import attention_inputs
+
+    k, v, stats, q = attention_inputs(SIRENConfig(hidden, 2, 30.0, "odd"), 2, t, d, torch.Generator().manual_seed(t),
+                                      cuda_device)
+    packed = tuple(sq.pack_resident_params(s.params(), "int8_g32") for s in (k, v))
+    assert sq.attention_route(hidden, d, t) == route
+    kw = dict(sin_impl="fast", causal=True, compute_dtype=torch.bfloat16)
+    before = dict(sq.wgmma_launches)
+    got = sq.siren_attention_decode_quant(None, None, *stats, q, "int8_g32", 30.0, 300, packed=packed, **kw)
+    torch.cuda.synchronize()
+    assert sq.wgmma_launches["siren_attention_decode_quant"] == before["siren_attention_decode_quant"] + (
+        route == "wgmma")
+    _bf16_close(got, sq.siren_attention_decode_quant_plain(packed, *stats, q, 30.0, 300, **kw))
+
+
+def act16_pieces(weights, hidden: int) -> np.ndarray:
+    """The pieces buffer of one net as csrc/siren_wgmma.cuh's split pass writes it, as uint16 bf16 bits, from the
+    fp32 weights of layers 1..L-1 ((rows, cols) each, on the CPU). For each layer, 64-column chunk c, split (w3, w2,
+    w1: w1 = bf16(w), w2 = bf16(w - w1), w3 = bf16(w - w1 - w2)) and 64-row k atom: a 64 x 64 region, zero past the
+    layer's rows and columns, element (row, col) at row * 64 + 8 ((col / 8) ^ (row % 8)) + col % 8."""
+    ka_n = -(-hidden // 64)
+    row, col = np.arange(64)[:, None], np.arange(64)[None, :]
+    dest = (row * 64 + ((col // 8) ^ (row % 8)) * 8 + col % 8).ravel()
+    out = []
+    for w in weights:
+        w = w.float()
+        rows, cols = w.shape
+        padded = torch.zeros(ka_n * 64, -(-cols // 64) * 64)
+        padded[:rows, :cols] = w
+        w1 = padded.to(torch.bfloat16)
+        r1 = padded - w1.float()
+        w2 = r1.to(torch.bfloat16)
+        splits = [(r1 - w2.float()).to(torch.bfloat16), w2, w1]
+        for c in range(padded.shape[1] // 64):
+            for piece in splits:
+                for ka in range(ka_n):
+                    bits = piece[ka * 64:(ka + 1) * 64, c * 64:(c + 1) * 64].contiguous().view(torch.int16)
+                    stage = np.empty(64 * 64, np.uint16)
+                    stage[dest] = bits.numpy().astype(np.uint16).ravel()
+                    out.append(stage)
+    return np.concatenate(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, config_name, scheme", [
+    ("2E", "small", "int4_g128"), ("2E", "medium", "fp32"), ("2E", "tiny", "int6_g64"),
+    ("2E", "deep", "int8_g32_l0fp32"), ("2F", "medium", "int4_g128"), ("2F", "small", "fp32"),
+    ("2F", "medium", "int6_g64"),
+], ids=["2E-small-int4", "2E-medium-dense", "2E-tiny-int6", "2E-deep-int8", "2F-medium-int4", "2F-small-dense",
+        "2F-medium-int6"])
+def test_act16_split_pass_writes_every_piece_bit_for_bit(cuda_device, monkeypatch, kernel, config_name, scheme):
+    """The pieces a launch's split pass leaves in device memory equal ``act16_pieces`` of the host-dequantized
+    weights, every bit of every piece of every net (2F: the key nets, then the value nets): so the kernels keep w1,
+    w2 and w3, all 24 bits of w, which a check of the outputs at BF16_ULPS could not tell from two pieces."""
+    from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+    from nerf_attention_tpu_torch.tools.measure_attention_decode import attention_inputs
+
+    config = CONFIGS_BY_NAME[config_name]
+    buffers = []
+    make = sq._pieces
+    monkeypatch.setattr(sq, "_pieces", lambda *a: buffers.append(make(*a)) or buffers[-1])
+    kw = dict(sin_impl="fast", compute_dtype=torch.bfloat16)
+    if kernel == "2E":
+        stacks = [_stack(config_name, 5, cuda_device, seed=7)]
+        packed = [sq.pack_resident_params(stacks[0].params(), scheme)]
+        sq.siren_decode_batch_quant(None, scheme, config.omega_0, 300, packed=packed[0], **kw)
+    else:
+        k, v, stats, q = attention_inputs(config, 3, 2, D, torch.Generator().manual_seed(7), cuda_device)
+        packed = [sq.pack_resident_params(s.params(), scheme) for s in (k, v)]
+        sq.siren_attention_decode_quant(None, None, *stats, q, scheme, config.omega_0, 300, packed=tuple(packed),
+                                        causal=True, **kw)
+    torch.cuda.synchronize()
+    assert len(buffers) == 1
+    got = buffers[0].cpu().numpy().view(np.uint16)
+    want = []
+    for params in (sq.unpack_resident_params(*p) for p in packed):
+        want += [act16_pieces([w[n].cpu() for w, _ in params[1:]], config.hidden_features)
+                 for n in range(params[0][0].shape[0])]
+    want = np.concatenate(want)
+    assert got.shape == want.shape
+    assert np.array_equal(got, want), f"{int((got != want).sum())} of {got.size} bf16 values differ"

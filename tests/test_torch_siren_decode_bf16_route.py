@@ -35,7 +35,9 @@ from nerf_attention_tpu_torch.types import CONFIGS_FULL, SIRENConfig
 
 torch.set_num_threads(1)
 
-KERNEL = Path(siren_cuda.__file__).resolve().parent.parent / "csrc" / "siren_decode_bf16.cu"
+CSRC = Path(siren_cuda.__file__).resolve().parent.parent / "csrc"
+KERNEL = CSRC / "siren_decode_bf16.cu"
+HEADER = CSRC / "siren_wgmma.cuh"  # the layer machinery, the sine and the constants the bf16 kernels share
 BF16_ULPS = 4  # tests/test_torch_siren_decode_bf16.py
 PIECE = 64
 
@@ -62,10 +64,10 @@ def test_route_by_width(hidden, d_out, want):
 
 
 def test_route_constants_are_the_kernels():
-    src = KERNEL.read_text()
+    header, src = HEADER.read_text(), KERNEL.read_text()
     for name, value in (("kMaxWidth", siren_cuda.WGMMA_MAX_WIDTH), ("kRows", siren_cuda.WGMMA_TILE_ROWS),
                         ("kPiece", siren_cuda.WGMMA_HIDDEN_MULT)):
-        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value), name
+        assert re.search(rf"constexpr int {name} = (\d+);", header).group(1) == str(value), name
     mult = siren_cuda.WGMMA_WIDTH_MULT
     assert f"H % {mult} != 0 || D % {mult} != 0" in src  # the launch refuses what the rule does not send
 
@@ -181,7 +183,7 @@ def test_accumulators_repack_as_the_next_a_fragments(seed):
 # ---- the exact sine ----
 
 def _sin_reduced_constants() -> list[float]:
-    src = KERNEL.read_text()
+    src = HEADER.read_text()
     body = src[src.index("float sin_reduced(float x) {"):]
     body = body[:body.index("\n}")]
     return [float(v) for v in re.findall(r"([-+]?\d+\.\d*(?:e[-+]?\d+)?)f", body)]
@@ -253,13 +255,16 @@ def test_exact_sine_path_within_the_modes_tolerance(hidden, layers, d, seq_len, 
 # ---- the trace tool ----
 
 def test_trace_tool_anchors_each_occur_once():
-    """tools/bf16_decode_trace.py stamps the committed kernel at points it finds exactly once."""
+    """tools/bf16_decode_trace.py stamps the committed kernel and the shared header at points it finds exactly
+    once."""
     from nerf_attention_tpu_torch.tools import bf16_decode_trace as tool
 
-    kernel = KERNEL.read_text()
-    assert all(kernel.count(old) == 1 for old, _ in tool.ANCHORS)
-    src = tool.instrumented_source()
-    assert src.count("clock64()") == 8 and 'extern "C" int read_trace' in src and "clock64()" not in kernel
+    kernel, header = KERNEL.read_text(), HEADER.read_text()
+    assert all(kernel.count(old) == 1 for old, _ in tool.KERNELS["2C"]["anchors"])
+    assert all(header.count(old) == 1 for old, _ in tool.HEADER_ANCHORS)
+    srcs = tool.instrumented_sources("2C")
+    assert srcs[HEADER.name].count("clock64()") == 11 and srcs[KERNEL.name].count("clock64()") == 2
+    assert 'extern "C" int read_trace' in srcs[KERNEL.name] and "clock64()" not in kernel + header
 
 
 def test_trace_tool_breakdown():
@@ -271,5 +276,6 @@ def test_trace_tool_breakdown():
     counters[40:42] = [900, 3]
     got = tool.breakdown(counters, 4)
     assert got["wg1"] == {"total": 400.0, "layer0": 50.0, "wait": 100.0, "wait_first_tile": 160.0,
-                          "wait_later_tiles": 80.0, "wgmma": 10.0, "epilogue": 200.0, "between": 4.0}
+                          "wait_later_tiles": 80.0, "full_wait": 0.0, "wgmma": 10.0, "epilogue": 200.0,
+                          "between": 4.0}
     assert got["wg2"]["total"] == 800.0 and got["producer_warp0"] == {"copies_back": 3, "empty_wait_each": 300.0}

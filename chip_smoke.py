@@ -239,11 +239,17 @@ either package calls these modes, so this is theirs. Outside the counts it
 holds each output to its plain version within BF16_ULPS bf16 ulps of the
 largest |output|, and to the fp32 mode's output on the same inputs: they
 differ, and the fp32 mode sits at least MODE_GAIN times farther (relative
-RMS) from the bf16 plain version than the bf16 mode does. 2F and 2E on
+RMS) from the bf16 plain version than the bf16 mode does. 2D's bias tables
+and layer 0 row are held rounded: the plain version with either left fp32
+sits at least TABLE_GAIN times farther from the bf16 plain version than
+2D's kernel does, on the key net's side (the softmax max) and the value
+net's (the output at q = 0). 2F and 2E on
 packed weights equal themselves over the host-dequantized weights shipped
 dense (max abs diff 0); each mode is timed beside its plain version and its
-fp32 mode. Phase 5 also checks the study's 40
-reference-format *_model.pt beside the 40 .npz, each equal to its twin.
+fp32 mode, and beside the layer stack's instance of its arithmetic, whose
+output on the timing shape is held to the same plain version. Phase 5 also
+checks the study's 40 reference-format *_model.pt beside the 40 .npz, each
+equal to its twin.
 
 Phase 3 also holds kernel 2F at the hybrid engine's shape (`small` nets, T=4,
 N 1 and 8, S 512, 2048 and 32768, fp32 / int8_g32 / int4_g128 payloads,
@@ -283,12 +289,15 @@ kernel's own launch count), its bound at the bf16 peak with the sine epilogue's 
 (tools/bf16_epilogue_floor.py), its launches the study's and the root tools'. The `(bf16)` entries of 2D, 2F and 2E are their bf16
 modes at phase 3's timing shapes, with fp32_ms (the fp32 mode beside it) and the launches of phase 3's
 drive; 2D's bound is at the bf16 peak, 2E's and 2F's at the TF32 peak (their products are fp32, as
-in JAX: bf16 activations times fp32 weights), 2E's output bytes halved. 2E's and 2F's bf16 launches go
-through their Hopper kernels (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu: three exact bf16
-pieces a weight on wgmma), asserted by those kernels' own launch counts; their entries add stack_ms (the
-layer stack's kAct16 instance on the same call) and epilogue_floor_fast_ms (their sines' epilogue alone,
-tools/bf16_epilogue_floor.py); the floor of their products as three bf16 passes at the bf16 peak is printed
-on phase 3's lines and kept out of the kernels' line, being worked out rather than measured.
+in JAX: bf16 activations times fp32 weights), 2E's output bytes halved. 2D's, 2E's and 2F's bf16 launches go
+through their Hopper kernels (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu: on wgmma, three exact
+bf16 pieces a weight for 2E and 2F, one rounded piece for 2D), asserted by those kernels' own launch counts;
+their entries add stack_ms (the layer stack's kBF16 or kAct16 instance on the same call, sampled in turn with
+the kernel), device_ms (torch.profiler's device time a call: the split pass, the kernel, the merge; null
+where no profiler session recorded exactly those kernels once a call) and epilogue_floor_fast_ms (their
+sines' epilogue alone, tools/bf16_epilogue_floor.py); the floor of their
+products as bf16 passes at the bf16 peak is printed on phase 3's lines and kept out of the kernels' line,
+being worked out rather than measured.
 
 It ends with the kernels' JSON line, the nvidia-smi line and the JSON result.
 The TPU package is not imported.
@@ -1413,9 +1422,9 @@ def uncounted():
 
     saved = [(counts, dict(counts)) for counts in (
         siren_train_cuda.launches, siren_cuda.launches, siren_cuda.bf16_launches, siren_cuda.wgmma_launches,
-        siren_attention_cuda.launches, siren_attention_cuda.bf16_launches, siren_quant_cuda.launches,
-        siren_quant_cuda.bf16_launches, siren_quant_cuda.wgmma_launches, kv_quant_cuda.launches,
-        mla_absorbed_cuda.launches, mla_quant_cuda.launches)]
+        siren_attention_cuda.launches, siren_attention_cuda.bf16_launches, siren_attention_cuda.wgmma_launches,
+        siren_quant_cuda.launches, siren_quant_cuda.bf16_launches, siren_quant_cuda.wgmma_launches,
+        kv_quant_cuda.launches, mla_absorbed_cuda.launches, mla_quant_cuda.launches)]
     try:
         yield
     finally:
@@ -2999,6 +3008,13 @@ BF16_DECODE_LENS = (2048, 32768)  # 2E on the ladder's key nets (BF16_ATTN_CASES
 # The control of each bf16 mode: the fp32 mode's output on the same inputs sits at least MODE_GAIN times farther
 # (relative RMS) from the bf16 plain version than the bf16 mode's own output does.
 MODE_GAIN = 2.0
+# 2D's bf16 kernel rounds its bias tables and layer 0 row to bf16: the plain version with either left fp32 sits at
+# least TABLE_GAIN times farther (relative RMS) from the bf16 plain version than the kernel does (``check_tables``).
+TABLE_GAIN = 10.0
+# The Hopper kernels of the bf16 modes and the layer stack on the same call are timed in turn, ALTERNATIONS samples
+# each (one sample: ALTERNATION_REPS back-to-back calls between CUDA events), so that a drift of the card or the host
+# moves both.
+ALTERNATIONS, ALTERNATION_REPS = 7, 30
 # Phase 23: the shared-basis study at its defaults (Llama-3.1-8B's KV geometry, layer 16, widths 64-512, the three
 # baseline configs), and the MLA latent study at DeepSeek-V2-Lite's attention widths (phase 10's configuration;
 # huggingface.co/deepseek-ai/DeepSeek-V2-Lite config.json), cut to 4 layers of 27 and S=2048; both at 200 epochs.
@@ -3042,6 +3058,80 @@ def check_mode(what: str, got, fp32, want) -> float:
     return gain
 
 
+def check_tables(what: str, k, v, stats, q, omega: float, seq_len: int, kw: dict) -> float:
+    """2D's bf16 kernel rounds its bias tables and layer 0 row: the plain version with the biases, or with layer 0's
+    weight row, left fp32 (the rest rounded as in the bf16 mode) sits at least TABLE_GAIN times farther (relative
+    RMS) from the bf16 plain version than the kernel does, on each net's side: the key net's through the softmax
+    max m (the kernel's launch with its stats; p's rounding does not reach m), the value net's through the output
+    at q = 0 (every score 0, p = 1 exactly). Returns the least ratio."""
+    import torch
+
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+    from nerf_attention_tpu_torch.ops._launch import stack_records
+
+    def params(stack, table):
+        rounded = lambda x: x.to(torch.bfloat16).float()
+        return [(w if i == 0 and table == "layer0" else rounded(w), b if table == "bias" else rounded(b))
+                for i, (w, b) in enumerate(stack.params())]
+
+    bf16, zero = torch.bfloat16, torch.zeros_like(q)
+    _, got_m, _ = sa.wgmma_attention_launch(stack_records(k), stack_records(v), len(k.dims), k.dims[0][1], *stats, q,
+                                            omega, seq_len, return_stats=True, round_weights=True, **kw)
+    got_zero = sa.siren_attention_decode_fused(k, v, *stats, zero, omega, seq_len, compute_dtype=bf16, **kw)
+    want_m = sa.siren_attention_decode_plain(k, v, *stats, q, omega, seq_len, return_stats=True, compute_dtype=bf16,
+                                             **kw)[1]
+    want_zero = sa.siren_attention_decode_plain(k, v, *stats, zero, omega, seq_len, compute_dtype=bf16, **kw)
+    near = {"m": rel_rms(got_m, want_m), "output at q = 0": rel_rms(got_zero, want_zero)}
+    gains = []
+    for table in ("bias", "layer0"):
+        kv = (params(k, table), params(v, table), *stats)
+        far = {"m": rel_rms(sa.siren_attention_decode_plain(*kv, q, omega, seq_len, return_stats=True,
+                                                            compute_dtype=bf16, round_weights=False, **kw)[1],
+                            want_m),
+               "output at q = 0": rel_rms(sa.siren_attention_decode_plain(*kv, zero, omega, seq_len,
+                                                                          compute_dtype=bf16, round_weights=False,
+                                                                          **kw), want_zero)}
+        for side in far:
+            gains.append(far[side] / near[side] if near[side] > 0 else math.inf)
+            print(f"  {what}, {side}: the plain version with {table} unrounded sits {far[side]:.3e} from the bf16 "
+                  f"plain version, the kernel {near[side]:.3e} ({gains[-1]:.1f}x, at least {TABLE_GAIN:g}x)")
+            assert gains[-1] >= TABLE_GAIN, (what, table, side, near[side], far[side])
+    return min(gains)
+
+
+def alternating_ms(runs: dict, dev) -> dict:
+    """Each of ``runs``' median ms a call over ALTERNATIONS samples taken in turn (a, b, a, b, ...); each sample
+    warms its run up first (``per_launch_ms``)."""
+    import numpy as np
+
+    from nerf_attention_tpu_torch.utils.timing import per_launch_ms
+
+    samples = {name: [] for name in runs}
+    for _ in range(ALTERNATIONS):
+        for name, fn in runs.items():
+            samples[name] += per_launch_ms(fn, ALTERNATION_REPS, 1, dev)
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def device_ms_a_call(run, kernels: tuple[str, ...], dev) -> tuple[float | None, dict]:
+    """The device time of one call of ``run``, which launches each of ``kernels`` (base names) once: the sum
+    of each kernel's time over the launches torch.profiler recorded of it, with the profiler's split. A session
+    counts only where it recorded exactly those kernels, each at 0.9-1.1 launches a call (a short session may drop
+    some launches, or whole kernels); None, with the last session's split, where five sessions of 50 calls give
+    none that counts."""
+    from nerf_attention_tpu_torch.utils.timing import kernel_ms_per_call
+
+    split = {}
+    for _ in range(5):
+        split = kernel_ms_per_call(run, 50, dev) or {}
+        names = [next((k for k in kernels if name.removeprefix("void ").split("(")[0].split("<")[0]
+                       .rsplit("::", 1)[-1] == k), None) for name in split]
+        if sorted(n for n in names if n) == sorted(kernels) and None not in names and all(
+                0.9 <= e["calls"] <= 1.1 for e in split.values()):
+            return sum(e["ms"] / e["calls"] for e in split.values()), split
+    return None, split
+
+
 def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
     """The bf16 modes of kernels 2D and 2F (8 medium heads, S 2048 and 32768 at T=1, T=16 causal at 2048) and 2E
     (128 `small` nets at S=512, and the key nets of the T=1 cases at their S; int4_g128). Neither package has a
@@ -3050,14 +3140,18 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
     those outputs is then held against its plain version (``check_ulps``) and against the fp32 mode's output on
     the same inputs (``check_mode``); 2F and 2E in bf16 on packed weights equal themselves on the
     host-dequantized weights shipped dense (max abs diff 0); each mode is timed beside its plain version and its
-    fp32 mode (``fp32_ms``), and 2E / 2F beside the layer stack's kAct16 instance and their floors. 2E's and
-    2F's launches all go through their Hopper kernels, asserted by ``siren_quant_cuda.wgmma_launches``. Returns
-    their report entries and their launches."""
+    fp32 mode (``fp32_ms``), and beside the layer stack's instance of its arithmetic on the same call (kBF16 for
+    2D, kAct16 for 2E / 2F; ``stack_ms``, sampled in turn with the kernel: ``alternating_ms``), its device time a
+    call (``device_ms``: torch.profiler's sum over the call's kernels, the split pass, the kernel and 2D / 2F's
+    merge) and its floors. 2D's, 2E's and 2F's launches all go through their Hopper kernels, asserted by
+    ``siren_attention_cuda.wgmma_launches`` and ``siren_quant_cuda.wgmma_launches``. Returns their report entries
+    and their launches."""
     import torch
 
     from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
     from nerf_attention_tpu_torch.ops import siren_cuda
     from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
+    from nerf_attention_tpu_torch.ops._launch import stack_records
     from nerf_attention_tpu_torch.tools import bf16_epilogue_floor
     from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME
 
@@ -3075,13 +3169,13 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
     dec += [(f"medium (the ladder's keys) N={NUM_HEADS} S={c[1]} fast bf16", omega, c[1], c[7][0])
             for c in attn if c[1] in BF16_DECODE_LENS and c[2]["causal"] is False]
 
-    # Every shape here is within the width rule: 2E's and 2F's bf16 launches all go through the Hopper kernels
+    # Every shape here is within the width rule: 2D's, 2E's and 2F's bf16 launches all go through the Hopper kernels
     # (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu), asserted by their own counts.
-    assert all(sq.attention_route(k.dims[0][1], k.dims[-1][1], q.shape[1]) == "wgmma" for *_, k, _, _, q, _ in attn)
+    assert all(sa.attention_route(k.dims[0][1], k.dims[-1][1], q.shape[1]) == "wgmma" for *_, k, _, _, q, _ in attn)
     assert all(sq.bf16_route(p[1][0][2], p[1][-1][2]) == "wgmma" for _, _, _, p in dec)
 
     # ---- the modes' path: each entry point once per shape ----
-    bf16_counts = (sa.bf16_launches, sq.bf16_launches, sq.wgmma_launches)
+    bf16_counts = (sa.bf16_launches, sq.bf16_launches, sq.wgmma_launches, sa.wgmma_launches)
     for counts in bf16_counts:
         for key in counts:
             counts[key] = 0
@@ -3096,21 +3190,24 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
     launches = {f"{key} (bf16)": counts[key] for counts in bf16_counts[:2] for key in counts}
     want = {"siren_attention_decode_fused (bf16)": len(attn), "siren_attention_decode_quant (bf16)": len(attn),
             "siren_decode_batch_quant (bf16)": len(dec)}
-    wgmma = dict(sq.wgmma_launches)
-    want_wgmma = {"siren_decode_batch_quant": len(dec), "siren_attention_decode_quant": len(attn)}
-    print(f"  the bf16 modes' entry points once per shape: launches {launches}, expected {want}; of 2E's and 2F's, "
-          f"through csrc/siren_decode_act16.cu and csrc/siren_attention_wgmma.cu {wgmma}, expected {want_wgmma}")
+    wgmma = {**sq.wgmma_launches, **sa.wgmma_launches}
+    want_wgmma = {"siren_decode_batch_quant": len(dec), "siren_attention_decode_quant": len(attn),
+                  "siren_attention_decode_fused": len(attn)}
+    print(f"  the bf16 modes' entry points once per shape: launches {launches}, expected {want}; of 2D's, 2E's and "
+          f"2F's, through csrc/siren_decode_act16.cu and csrc/siren_attention_wgmma.cu {wgmma}, expected {want_wgmma}")
     assert launches == want, (launches, want)
     assert wgmma == want_wgmma, (wgmma, want_wgmma)
 
     err = {"2D": 0.0, "2F": 0.0, "2E": 0.0}
     gains = {"2D": [], "2F": [], "2E": []}
+    tables = []
     with uncounted():
         for (tag, s, kw, k, v, stats, q, packed), got, o in zip(attn, out_d, out_f):
             want_d = sa.siren_attention_decode_plain(k, v, *stats, q, omega, s, compute_dtype=bf16, **kw)
             err["2D"] = max(err["2D"], check_ulps(f"2D {tag}", got, want_d))
             gains["2D"].append(check_mode(f"2D {tag}", got, sa.siren_attention_decode(k, v, *stats, q, omega, s,
                                                                                       **kw), want_d))
+            tables.append(check_tables(f"2D {tag}", k, v, stats, q, omega, s, dict(fm_mult=None, **kw)))
             want_f, m_p, _ = sq.siren_attention_decode_quant_plain(packed, *stats, q, omega, s, return_stats=True,
                                                                      compute_dtype=bf16, **kw)
             err["2F"] = max(err["2F"], check_ulps(f"2F[{BF16_SCHEME}] {tag}", o, want_f))
@@ -3157,12 +3254,19 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
         emacs, _ = siren_macs(plan_nets.dims)
         run_e = lambda: sq.siren_decode_batch_quant(None, BF16_SCHEME, small.omega_0, PLAN_SEQ_LEN,
                                                     packed=packed_e, sin_impl="fast", compute_dtype=bf16)
-        # 2E's and 2F's Hopper kernels beside the layer stack's kAct16 instance on the same calls (the kernel these
-        # modes took before them), and each kernel's own floors: its products as three bf16 passes at the bf16 peak,
-        # and its sines' epilogue alone (tools/bf16_epilogue_floor.py, the kernels' own hidden_epilogue) over the
-        # call's sines.
+        # The Hopper kernels beside the layer stack's instance of their arithmetic on the same calls (the kernel
+        # these modes took before them: kBF16 for 2D, kAct16 for 2E / 2F), sampled in turn; each kernel's device
+        # time a call (the split pass, the kernel, the merge); and its own floors: its products as bf16 passes at
+        # the bf16 peak (one for 2D, three for 2E / 2F), and its sines' epilogue alone (tools/bf16_epilogue_floor.py,
+        # the kernels' own hidden_epilogue) over the call's sines.
         k_rec, v_rec, keep_f = sq.resident_records(packed, dev)
         e_rec, keep_e = sq.packed_records(*packed_e, dev)
+        run_d = lambda: sa.siren_attention_decode_fused(k, v, *stats, q, omega, seq_len, compute_dtype=bf16, **kw)
+        run_f = lambda: sq.siren_attention_decode_quant(None, None, *stats, q, BF16_SCHEME, omega, seq_len,
+                                                        packed=packed, compute_dtype=bf16, **kw)
+        stack_d = lambda: sa.attention_launch(stack_records(k), stack_records(v), len(k.dims), k.dims[0][1], *stats,
+                                              q, omega, seq_len, return_stats=False, fm_mult=None,
+                                              compute_dtype=bf16, **kw)
         stack_f = lambda: sa.attention_launch(k_rec, v_rec, len(k.dims), k.dims[0][1], *stats, q, omega, seq_len,
                                               return_stats=False, fm_mult=None, compute_dtype=bf16,
                                               round_weights=False, **kw)
@@ -3172,28 +3276,49 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
         sines_f = NUM_HEADS * seq_len * 2 * (len(k.dims) - 1) * k.dims[0][1]
         sines_e = PLAN_NETS * PLAN_SEQ_LEN * (len(plan_nets.dims) - 1) * small.hidden_features
         floors = {"2F": bf16_epilogue_floor.floor(sines_f, dev), "2E": bf16_epilogue_floor.floor(sines_e, dev)}
-        own = {"2F": dict(stack_ms=median_ms(stack_f, 50), bf16_passes_ms=3 * attn_flops / PEAK_BF16_FLOPS * 1e3,
-                          epilogue_floor_fast_ms=floors["2F"]["fast"]["probe_ms"], sines=sines_f),
-               "2E": dict(stack_ms=median_ms(stack_e, 50),
-                          bf16_passes_ms=3 * 2 * emacs * PLAN_SEQ_LEN * PLAN_NETS / PEAK_BF16_FLOPS * 1e3,
-                          epilogue_floor_fast_ms=floors["2E"]["fast"]["probe_ms"], sines=sines_e)}
+        # The layer stack's output on the timing shape, held to the same plain version as the kernel's.
+        want_d = sa.siren_attention_decode_plain(k, v, *stats, q, omega, seq_len, compute_dtype=bf16, **kw)
+        stack_err = {"2D": check_ulps("2D's layer stack (kBF16) at the timing shape", stack_d(), want_d)}
+        check_mode("2D's layer stack (kBF16) at the timing shape", stack_d(),
+                   sa.siren_attention_decode(k, v, *stats, q, omega, seq_len, **kw), want_d)
+        stack_err["2F"] = check_ulps("2F's layer stack (kAct16) at the timing shape", stack_f(),
+                                     sq.siren_attention_decode_quant_plain(packed, *stats, q, omega, seq_len,
+                                                                           compute_dtype=bf16, **kw))
+        stack_err["2E"] = check_ulps("2E's layer stack (kAct16) at the plan shape", stack_e(),
+                                     sq.siren_decode_batch_quant_plain(packed_e, small.omega_0, PLAN_SEQ_LEN,
+                                                                       sin_impl="fast", compute_dtype=bf16))
+        attention_kernels = ("attention_wgmma_kernel", "merge_chunks_kernel", "split_kernel")
+        times = {}
+        for name, run, stack, kernels in (("2D", run_d, stack_d, attention_kernels),
+                                          ("2F", run_f, stack_f, attention_kernels),
+                                          ("2E", run_e, stack_e, ("decode_act16_kernel", "split_kernel"))):
+            times[name] = alternating_ms({"ms": run, "stack_ms": stack}, dev)
+            times[name]["device_ms"], split = device_ms_a_call(run, kernels, dev)
+            recorded = ", ".join(f"{kname[:48]} {e['ms']:.4f} ms x{e['calls']:g}" for kname, e in split.items())
+            print(f"  {name} bf16, device time a call (torch.profiler): "
+                  + (f"{times[name]['device_ms']:.4f} ms over {recorded}" if times[name]["device_ms"] is not None
+                     else f"not measured (no session recorded exactly {', '.join(kernels)} once a call; the last: "
+                          f"{recorded or 'no kernel'})"))
+        own = {"2D": dict(bf16_passes_ms=attn_flops / PEAK_BF16_FLOPS * 1e3,
+                          epilogue_floor_fast_ms=floors["2F"]["fast"]["probe_ms"], sines=sines_f, **times["2D"]),
+               "2F": dict(bf16_passes_ms=3 * attn_flops / PEAK_BF16_FLOPS * 1e3,
+                          epilogue_floor_fast_ms=floors["2F"]["fast"]["probe_ms"], sines=sines_f, **times["2F"]),
+               "2E": dict(bf16_passes_ms=3 * 2 * emacs * PLAN_SEQ_LEN * PLAN_NETS / PEAK_BF16_FLOPS * 1e3,
+                          epilogue_floor_fast_ms=floors["2E"]["fast"]["probe_ms"], sines=sines_e, **times["2E"])}
         del keep_f, keep_e
         report = {
             "siren_attention_decode_fused (bf16)": dict(
                 max_abs_err=err["2D"], shape=shape, library_ms=None,
-                ms=median_ms(lambda: sa.siren_attention_decode_fused(k, v, *stats, q, omega, seq_len,
-                                                                     compute_dtype=bf16, **kw), 50),
                 plain_ms=median_ms(lambda: sa.siren_attention_decode_plain(k, v, *stats, q, omega, seq_len,
                                                                            compute_dtype=bf16, **kw), 20),
                 fp32_ms=median_ms(lambda: sa.siren_attention_decode_fused(k, v, *stats, q, omega, seq_len, **kw),
                                   50),
-                # bf16 products at the bf16 peak; the weights stream as fp32 (rounded in the fragment loads)
-                **bound(attn_flops, 2 * NUM_HEADS * pbytes + small_bytes, PEAK_BF16_FLOPS)),
+                # bf16 products at the bf16 peak; the function reads the fp32 weights once (the split pass rounds
+                # them)
+                **bound(attn_flops, 2 * NUM_HEADS * pbytes + small_bytes, PEAK_BF16_FLOPS),
+                **own["2D"]),
             "siren_attention_decode_quant (bf16)": dict(
                 max_abs_err=err["2F"], shape=f"{shape}, {BF16_SCHEME} weights", library_ms=None,
-                ms=median_ms(lambda: sq.siren_attention_decode_quant(None, None, *stats, q, BF16_SCHEME, omega,
-                                                                     seq_len, packed=packed, compute_dtype=bf16,
-                                                                     **kw), 50),
                 plain_ms=median_ms(lambda: sq.siren_attention_decode_quant_plain(packed, *stats, q, omega, seq_len,
                                                                                  compute_dtype=bf16, **kw), 20),
                 fp32_ms=median_ms(lambda: sq.siren_attention_decode_quant(None, None, *stats, q, BF16_SCHEME, omega,
@@ -3205,7 +3330,6 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
                 max_abs_err=err["2E"], library_ms=None,
                 shape=f"small, N={PLAN_NETS}, S={PLAN_SEQ_LEN}, D={HEAD_DIM}, fast sine, {BF16_SCHEME} weights, "
                       "bf16 mode",
-                ms=median_ms(run_e, 50),
                 plain_ms=median_ms(lambda: sq.siren_decode_batch_quant_plain(
                     packed_e, small.omega_0, PLAN_SEQ_LEN, sin_impl="fast", compute_dtype=bf16), 20),
                 fp32_ms=median_ms(lambda: sq.siren_decode_batch_quant(None, BF16_SCHEME, small.omega_0, PLAN_SEQ_LEN,
@@ -3216,15 +3340,17 @@ def check_bf16_kernels(dev, median_ms, stack_for) -> tuple[dict, dict]:
                 **own["2E"]),
         }
     print(f"  controls: the fp32 mode's relative RMS from the bf16 plain versions over the bf16 mode's, least per "
-          f"mode: " + ", ".join(f"{m} {min(g):.1f}x" for m, g in gains.items()))
+          f"mode: " + ", ".join(f"{m} {min(g):.1f}x" for m, g in gains.items())
+          + f"; 2D's unrounded-table plain versions over the kernel, least {min(tables):.1f}x; the layer stacks' "
+            f"max_abs_err at the timing shapes {stack_err}")
     for name, r in report.items():
         print(f"  {name} ({r['shape']}): kernel {r['ms']:.4f} ms (fp32 mode {r['fp32_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        if "stack_ms" in r:
-            print(f"    the Hopper kernel against the layer stack's kAct16 instance on the same call: {r['ms']:.4f} / "
-                  f"{r['stack_ms']:.4f} ms; its floors: three bf16 passes {r['bf16_passes_ms']:.4f} ms, the sine "
-                  f"epilogue of its {r['sines']} sines {r['epilogue_floor_fast_ms']:.4f} ms (fast sine, "
-                  "tools/bf16_epilogue_floor.py)")
+        device = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        print(f"    the Hopper kernel against the layer stack on the same call, sampled in turn: {r['ms']:.4f} / "
+              f"{r['stack_ms']:.4f} ms ({r['stack_ms'] / r['ms']:.2f}x); its device time a call {device}; its "
+              f"floors: its bf16 passes {r['bf16_passes_ms']:.4f} ms, the sine epilogue of its {r['sines']} sines "
+              f"{r['epilogue_floor_fast_ms']:.4f} ms (fast sine, tools/bf16_epilogue_floor.py)")
     return report, launches
 
 
@@ -4341,7 +4467,7 @@ def main() -> int:
                                          "nerf_attention_tpu/ops/mla_quant_pallas.py:249"),
         "siren_decode_batch_quant": ("nerf_attention_tpu_torch/csrc/siren_decode.cu",
                                      "nerf_attention_tpu/ops/siren_quant_pallas.py:285"),
-        "siren_attention_decode_fused (bf16)": ("nerf_attention_tpu_torch/csrc/siren_attention.cuh",
+        "siren_attention_decode_fused (bf16)": ("nerf_attention_tpu_torch/csrc/siren_attention_wgmma.cu",
                                                 "nerf_attention_tpu/ops/siren_attention_pallas.py:151"),
         "siren_attention_decode_quant (bf16)": ("nerf_attention_tpu_torch/csrc/siren_attention_wgmma.cu",
                                                 "nerf_attention_tpu/ops/siren_quant_pallas.py:512"),

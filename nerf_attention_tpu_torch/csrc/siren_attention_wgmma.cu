@@ -1,16 +1,21 @@
-// Kernel 2F's bf16 mode on Hopper: per head, O = softmax(q K^T / sqrt(D)) V with K and V rebuilt tile by tile
-// from a key net and a value net over packed (or dense) fp32 weights, every hidden and final product three wgmma
-// bf16 chains on ready bf16 pieces of the weights, the activations and the sine epilogue in registers.
+// Kernels 2F's and 2D's bf16 modes on Hopper: per head, O = softmax(q K^T / sqrt(D)) V with K and V rebuilt tile
+// by tile from a key net and a value net, every hidden and final product wgmma bf16 chains on ready bf16 pieces of
+// the weights (SPLITS a weight), the activations and the sine epilogue in registers.
 //
-// Replaces: nerf_attention_tpu/ops/siren_quant_pallas.py, _attn_quant_jit (kernel _attn_quant_kernel) with
-// compute_dtype=bfloat16: both nets' stacks as 2E's bf16 mode (bf16 activations times fp32 weights,
-// siren_wgmma.cuh's ACT16 arithmetic), K and V denormalized in fp32 (y * std + mean), q.k and the online softmax
-// in fp32, p and V rounded to bf16 for p.V with fp32 sums (attn_common.cuh's acc_update<true>), an fp32 output,
-// with (m, l) when asked. Nets up to kMaxWidth wide with D <= kMaxHeadDim and T <= kMaxQueries take this kernel;
-// others keep the layer stack's ACT16 instance (siren_attention_act16.cu), by the wrapper's rule
-// (ops/siren_quant_cuda.py:attention_route).
+// Replaces, with compute_dtype=bfloat16:
+//   * nerf_attention_tpu/ops/siren_quant_pallas.py, _attn_quant_jit (kernel _attn_quant_kernel), over packed (or
+//     dense) fp32 weights: both nets' stacks as 2E's bf16 mode (bf16 activations times fp32 weights, siren_wgmma.cuh's
+//     ACT16 arithmetic: three pieces a weight, three chains a product);
+//   * nerf_attention_tpu/ops/siren_attention_pallas.py, siren_attention_decode_fused (kernel _attn_kernel), over
+//     dense fp32 weights: _flat_weights rounds both nets' W and b to bf16, so each product is one chain over w1 =
+//     bf16(w), each bias and layer 0's row bf16-rounded (siren_wgmma.cuh's rounded arithmetic).
+// Both then denormalize K and V in fp32 (y * std + mean), take q.k and the online softmax in fp32, round p and V to
+// bf16 for p.V with fp32 sums (attn_common.cuh's acc_update<true>) and give an fp32 output, with (m, l) when asked.
+// Nets up to kMaxWidth wide with D <= kMaxHeadDim and T <= kMaxQueries take this kernel; others keep the layer
+// stack's instances (siren_attention_act16.cu, siren_attention_bf16.cu), by the wrappers' rule
+// (ops/siren_attention_cuda.py:attention_route).
 //
-// The design. split_kernel first writes every key and value net's weights as three bf16 pieces in wgmma's B
+// The design. split_kernel first writes every key and value net's weights as SPLITS bf16 pieces in wgmma's B
 // layout, once a launch. A block of three warpgroups owns one (head, chunk of 128-row tiles) cell: its producer
 // thread copies ready pieces (8 KB bulk copies, by its four warps) through a ring of kAttnStages pieces, the key net's pieces of a
 // tile, then the value net's; its two consumer warpgroups (64 rows each) run both nets on the same registers
@@ -28,7 +33,8 @@
 // the layer stack's attention kernel. Every sum is taken in one fixed order, so two runs give the same bits, and
 // packed weights give the bits of their host-dequantized values shipped dense.
 //
-// Shared memory (AttnSmem): the ring (16 x 8 KB), both nets' fp32 bias tables and layer 0 rows, the
+// Shared memory (AttnSmem): the ring (16 x 8 KB), both nets' fp32 bias tables and layer 0 rows (bf16-rounded
+// values where the weights are rounded), the
 // denormalization stats, the queries, the attention state and the V tile: 224 KB at L = 16, T = 16, D = 128.
 
 #include <cuda.h>
@@ -141,11 +147,11 @@ struct AttnOut {
     }
 };
 
-// k_mean .. v_std: (N, D); q: (N, T, D); mult: (H,) or null; pieces: split_kernel's (N key nets, then N value
-// nets); part_ml (N, chunks, T, 2), part_acc (N, chunks, T, D). A block takes tiles [blockIdx.x * tiles_per_chunk,
-// ...) of head blockIdx.y.
-template <bool FAST>
-__global__ void __launch_bounds__(kThreads, 1) attention_act16_kernel(
+// k_mean .. v_std: (N, D); q: (N, T, D); mult: (H,) or null; pieces: split_kernel<SPLITS>'s (N key nets, then N
+// value nets); part_ml (N, chunks, T, 2), part_acc (N, chunks, T, D). A block takes tiles [blockIdx.x *
+// tiles_per_chunk, ...) of head blockIdx.y. SPLITS: kSplits (2F, ACT16) or 1 (2D, the weights rounded).
+template <bool FAST, int SPLITS>
+__global__ void __launch_bounds__(kThreads, 1) attention_wgmma_kernel(
     const __grid_constant__ NetDesc knet, const __grid_constant__ NetDesc vnet, int L,
     const float* __restrict__ k_mean, const float* __restrict__ k_std, const float* __restrict__ v_mean,
     const float* __restrict__ v_std, const float* __restrict__ q, const float* __restrict__ mult,
@@ -160,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_act16_kernel(
     const int n_tiles = (S + kRows - 1) / kRows;
     const int lo = chunk * tiles_per_chunk, hi = min(lo + tiles_per_chunk, n_tiles);
     const int KA = (H + kPiece - 1) / kPiece, dch = (D + kPiece - 1) / kPiece;
-    const int per_net = pieces_per_net(H, D, L);
+    const int per_net = pieces_per_net(H, D, L, SPLITS);
     const int total = max(hi - lo, 0) * 2 * per_net;
     if (threadIdx.x == 0) {
         for (int s = 0; s < kAttnStages; ++s) {
@@ -174,8 +180,8 @@ __global__ void __launch_bounds__(kThreads, 1) attention_act16_kernel(
     float* kfirst = reinterpret_cast<float*>(smem + off.first_w);
     float* vfirst = kfirst + kMaxWidth;
     float* first_sc = reinterpret_cast<float*>(smem + off.first_sc);
-    fill_act16_tables(knet, n, L, H, kbias, kfirst);
-    fill_act16_tables(vnet, n, L, H, vbias, vfirst);
+    fill_net_tables<SPLITS == 1>(knet, n, L, H, kbias, kfirst);
+    fill_net_tables<SPLITS == 1>(vnet, n, L, H, vbias, vfirst);
     fill_scales(mult, H, omega, first_sc);
     float* stats = reinterpret_cast<float*>(smem + off.stats);
     for (int e = threadIdx.x; e < D; e += kThreads) {
@@ -203,8 +209,8 @@ __global__ void __launch_bounds__(kThreads, 1) attention_act16_kernel(
     const int t = lane % 4, lr0 = wg * 64 + warp * 16 + lane / 4;
     const NetTables<float> key_net{kbias, kfirst, first_sc}, value_net{vbias, vfirst, first_sc};
     const float xden = (float)max(S - 1, 1);
-    Consumer<FAST, kSplits, kAttnStages, float> c{key_net, KA, KA, dch, lane, t, omega, xden, smem_addr(smem), full,
-                                                  empty};
+    Consumer<FAST, SPLITS, kAttnStages, float> c{key_net, KA, KA, dch, lane, t, omega, xden, smem_addr(smem), full,
+                                                 empty};
     AttnOut out{qs, stats, st.sc, vt, D, T, t, lr0, true};
     st.init(T, D, lt, 256);
     uint32_t a[kKSteps][4], an[kKSteps][4];
@@ -232,14 +238,17 @@ __global__ void __launch_bounds__(kThreads, 1) attention_act16_kernel(
     attn::write_partial(st, T, D, part_ml + cell * T * 2, part_acc + cell * T * D, lt, 256);
 }
 
-template <bool FAST>
+// The split pass with SPLITS pieces a weight, then the attention kernel.
+template <bool FAST, int SPLITS>
 int launch(dim3 grid, const NetDesc& knet, const NetDesc& vnet, int L, const float* k_mean, const float* k_std,
-           const float* v_mean, const float* v_std, const float* q, const float* mult, const void* pieces,
+           const float* v_mean, const float* v_std, const float* q, const float* mult, void* pieces,
            float* part_ml, float* part_acc, int N, int S, int T, int H, int D, float omega, float q_scale, int causal,
            int tiles_per_chunk, cudaStream_t st) {
-    const auto kernel = attention_act16_kernel<FAST>;
+    const auto kernel = attention_wgmma_kernel<FAST, SPLITS>;
     const int smem = AttnSmem(L, T, D).bytes();
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = split_launch<SPLITS>(knet, vnet, N, 2 * N, L, H, D, pieces, st);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kThreads, smem, st>>>(knet, vnet, L, k_mean, k_std, v_mean, v_std, q, mult,
                                          static_cast<const unsigned char*>(pieces), part_ml, part_acc, N, S, T, H, D,
@@ -251,27 +260,29 @@ int launch(dim3 grid, const NetDesc& knet, const NetDesc& vnet, int L, const flo
 
 using namespace bf16wg;
 
-// Bytes of the pieces area a launch over n_nets nets of these widths needs (split_kernel's output; 2N here).
-extern "C" long long siren_act16_pieces_bytes(int H, int D, int L, int n_nets) {
-    return (long long)pieces_per_net(H, D, L) * kStageBytes * n_nets;
+// Bytes of the pieces area a launch over N heads of these widths needs (split_kernel's output over 2N nets: kSplits
+// pieces a weight, one where `rounded`).
+extern "C" long long siren_attention_wgmma_pieces_bytes(int H, int D, int L, int N, int rounded) {
+    return (long long)pieces_per_net(H, D, L, rounded ? 1 : kSplits) * kStageBytes * 2 * N;
 }
 
 // Shared-memory bytes of a block (L layers, T queries, head width D).
 extern "C" int siren_attention_wgmma_smem(int L, int T, int D) { return AttnSmem(L, T, D).bytes(); }
 
 // k_desc, v_desc: L LayerDesc records each (dense fp32 or packed codes, layer 0 dense; (1, H), (H, H) x (L - 2),
-// (H, D)); k_mean .. v_std: (N, D) fp32; q: (N, T, D) fp32; mult: (H,) fp32 or null; pieces:
-// siren_act16_pieces_bytes(H, D, L, 2 N) of device memory (16-byte aligned), scratch the launch overwrites; part_ml
-// (N, chunks, T, 2) and part_acc (N, chunks, T, D) scratch; out (N, T, D); m_out, l_out (N, T) or null. H and D
-// multiples of 4, H at most kMaxWidth, D at most kMaxHeadDim, T at most kMaxQueries (and at most S when causal);
-// chunks * tiles_per_chunk * 128 >= S. Runs split_kernel, the attention and the merge. Returns cudaGetLastError()
-// after the launches.
+// (H, D)); k_mean .. v_std: (N, D) fp32; q: (N, T, D) fp32; mult: (H,) fp32 or null; rounded: 0 for 2F's
+// arithmetic (kSplits pieces a weight), 1 for 2D's (weights, biases and layer 0 rounded to bf16, one piece a weight);
+// pieces: siren_attention_wgmma_pieces_bytes(H, D, L, N, rounded) of device memory (16-byte aligned), scratch the
+// launch overwrites; part_ml (N, chunks, T, 2) and part_acc (N, chunks, T, D) scratch; out (N, T, D); m_out, l_out
+// (N, T) or null. H and D multiples of 4, H at most kMaxWidth, D at most kMaxHeadDim, T at most kMaxQueries (and at
+// most S when causal); chunks * tiles_per_chunk * 128 >= S. Runs split_kernel, the attention and the merge. Returns
+// cudaGetLastError() after the launches.
 extern "C" int siren_attention_wgmma_launch(const long long* k_desc, const long long* v_desc, int L,
                                             const float* k_mean, const float* k_std, const float* v_mean,
                                             const float* v_std, const float* q, const float* mult, void* pieces,
                                             float* part_ml, float* part_acc, float* out, float* m_out, float* l_out,
                                             int N, int S, int T, int H, int D, float omega, float q_scale, int fast,
-                                            int causal, int chunks, int tiles_per_chunk, void* stream) {
+                                            int rounded, int causal, int chunks, int tiles_per_chunk, void* stream) {
     NetDesc knet{}, vnet{};
     if (L < 2 || L > siren::kMaxLayers || N < 1 || N > 65535 || S < 1 || T < 1 || T > kMaxQueries ||
         (causal && T > S) || D > kMaxHeadDim || chunks < 1 || tiles_per_chunk < 1 ||
@@ -282,13 +293,13 @@ extern "C" int siren_attention_wgmma_launch(const long long* k_desc, const long 
     std::memcpy(vnet.layer, v_desc, sizeof(LayerDesc) * L);
     if (!act16_net_ok(knet, L, H, D) || !act16_net_ok(vnet, L, H, D)) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t err = split_launch(knet, vnet, N, 2 * N, L, H, D, pieces, st);
-    if (err != cudaSuccess) return (int)err;
     const dim3 grid(chunks, N);
-    const int status = fast ? launch<true>(grid, knet, vnet, L, k_mean, k_std, v_mean, v_std, q, mult, pieces, part_ml,
-                                           part_acc, N, S, T, H, D, omega, q_scale, causal, tiles_per_chunk, st)
-                            : launch<false>(grid, knet, vnet, L, k_mean, k_std, v_mean, v_std, q, mult, pieces, part_ml,
-                                            part_acc, N, S, T, H, D, omega, q_scale, causal, tiles_per_chunk, st);
+    const auto run = [&](auto kernel_launch) {
+        return kernel_launch(grid, knet, vnet, L, k_mean, k_std, v_mean, v_std, q, mult, pieces, part_ml, part_acc, N,
+                             S, T, H, D, omega, q_scale, causal, tiles_per_chunk, st);
+    };
+    const int status = rounded ? (fast ? run(launch<true, 1>) : run(launch<false, 1>))
+                               : (fast ? run(launch<true, kSplits>) : run(launch<false, kSplits>));
     if (status != 0) return status;
     attn::merge_chunks_kernel<<<N, attn::kThreads, 0, st>>>(part_ml, part_acc, out, m_out, l_out, chunks, T, D);
     return (int)cudaGetLastError();

@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_act16_kernel(const __grid_
     const int n_tiles = (S + kRows - 1) / kRows;
     const int t_lo = blockIdx.x * tiles_per_chunk, t_hi = min(t_lo + tiles_per_chunk, n_tiles);
     const int KA = (H + kPiece - 1) / kPiece, dch = (D + kPiece - 1) / kPiece;
-    const int per_tile = pieces_per_net(H, D, L);
+    const int per_tile = pieces_per_net(H, D, L, kSplits);
     const int total = max(t_hi - t_lo, 0) * per_tile;
     if (threadIdx.x == 0) {
         for (int s = 0; s < kAct16Stages; ++s) {
@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_act16_kernel(const __grid_
     float* bias = reinterpret_cast<float*>(smem + kAct16BiasOff);
     float* first_w = bias + L * kMaxWidth;
     float* first_sc = first_w + kMaxWidth;
-    fill_act16_tables(net, n, L, H, bias, first_w);
+    fill_net_tables<false>(net, n, L, H, bias, first_w);
     fill_scales(mult, H, omega, first_sc);
     __syncthreads();
     if (threadIdx.x < 128) {
@@ -103,7 +103,7 @@ using namespace bf16wg;
 
 // Bytes of the pieces area a launch over n_nets nets of these widths needs (split_kernel's output).
 extern "C" long long siren_act16_pieces_bytes(int H, int D, int L, int n_nets) {
-    return (long long)pieces_per_net(H, D, L) * kStageBytes * n_nets;
+    return (long long)pieces_per_net(H, D, L, kSplits) * kStageBytes * n_nets;
 }
 
 // desc: L LayerDesc records (13 int64 each; dense fp32 or packed codes, layer 0 dense; layer 0 (1, H), layers
@@ -121,7 +121,7 @@ extern "C" int siren_decode_act16_launch(const long long* desc, int L, const flo
     std::memcpy(net.layer, desc, sizeof(LayerDesc) * L);
     if (!act16_net_ok(net, L, H, D)) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    const cudaError_t err = split_launch(net, net, N, N, L, H, D, pieces, st);
+    const cudaError_t err = split_launch<kSplits>(net, net, N, N, L, H, D, pieces, st);
     if (err != cudaSuccess) return (int)err;
     const float xden = (float)std::max(S - 1, 1);
     const dim3 grid(chunks, N);

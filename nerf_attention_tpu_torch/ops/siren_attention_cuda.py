@@ -15,7 +15,12 @@ weights.
 kernel 2B/2C's (weights, biases and activations rounded, fp32 sums), the
 denormalized K and V, q.k and the softmax in fp32, then p and V rounded to
 bf16 for p.V with fp32 sums; the output stays fp32. 2F's bf16 mode is the
-same with the weights kept fp32 (``round_weights=False``).
+same with the weights kept fp32 (``round_weights=False``). On the card, calls
+that ``attention_route`` gives "wgmma" take the Hopper kernel of both bf16
+modes, ``csrc/siren_attention_wgmma.cu`` (``wgmma_attention_launch``), for 2D
+with one rounded bf16 piece a weight and one wgmma chain a product, counted in
+``wgmma_launches``; other calls keep the layer stack's ``kBF16`` instance
+(``siren_attention_bf16.cu``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from nerf_attention_tpu_torch.ops.siren_cuda import (
     PREC_ACT16,
     PREC_BF16,
     PREC_F32,
+    WGMMA_TILE_ROWS,
+    bf16_route,
     precision,
     round_bf16,
     siren_apply_bf16,
@@ -52,8 +59,9 @@ from nerf_attention_tpu_torch.ops.siren_cuda import (
 
 # Launches of the CUDA kernel; plain evaluations are not counted.
 launches = {"siren_attention_decode_fused": 0}
-# Of those, the launches in the bf16 mode.
+# Of those, the launches in the bf16 mode, and of these the ones csrc/siren_attention_wgmma.cu took.
 bf16_launches = {"siren_attention_decode_fused": 0}
+wgmma_launches = {"siren_attention_decode_fused": 0}
 
 EMPTY_M = -1e30  # m reported for a query row that nothing attends
 
@@ -222,6 +230,89 @@ def attention_launch(k_records: list[int], v_records: list[int], n_layers: int, 
     return (out, m, l) if return_stats else out
 
 
+# csrc/siren_attention_wgmma.cu: kMaxQueries and kMaxHeadDim (its partial scores and V tile).
+WGMMA_MAX_QUERIES, WGMMA_MAX_HEAD_DIM = 16, 128
+
+
+def attention_route(hidden: int, d: int, n_queries: int) -> str:
+    """The kernel of 2D's and 2F's bf16 modes for nets of these widths and ``n_queries`` queries: ``"wgmma"``
+    (csrc/siren_attention_wgmma.cu) where ``bf16_route`` takes the nets, ``d`` is at most
+    ``WGMMA_MAX_HEAD_DIM`` and ``n_queries`` at most ``WGMMA_MAX_QUERIES``, else ``"stack"``
+    (the layer stack: siren_attention_bf16.cu, siren_attention_act16.cu)."""
+    fits = d <= WGMMA_MAX_HEAD_DIM and n_queries <= WGMMA_MAX_QUERIES
+    return "wgmma" if fits and bf16_route(hidden, d) == "wgmma" else "stack"
+
+
+def bind_wgmma_attention(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of csrc/siren_attention_wgmma.cu, with its entry points' C types set."""
+    lib.siren_attention_wgmma_pieces_bytes.restype = ctypes.c_longlong
+    lib.siren_attention_wgmma_pieces_bytes.argtypes = [ctypes.c_int] * 5
+    lib.siren_attention_wgmma_launch.restype = ctypes.c_int
+    lib.siren_attention_wgmma_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.siren_attention_wgmma_smem.restype = ctypes.c_int
+    lib.siren_attention_wgmma_smem.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+@functools.cache
+def _wgmma_attention_library() -> ctypes.CDLL:
+    return bind_wgmma_attention(_build.load_library("siren_attention_wgmma"))
+
+
+@functools.cache
+def _wgmma_attention_plan(n: int, seq_len: int, device_index: int) -> tuple[int, int]:
+    """(chunks, tiles per chunk) of a launch of n heads over seq_len rows: one block an SM (its shared memory), tiles
+    of ``WGMMA_TILE_ROWS`` rows, cut as the layer stack's attention launches are (``chunking``)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    chunks, rows_per_chunk = chunking(n, seq_len, WGMMA_TILE_ROWS, sms)
+    return chunks, rows_per_chunk // WGMMA_TILE_ROWS
+
+
+def _pieces(lib: ctypes.CDLL, hidden: int, d: int, n_layers: int, n: int, round_weights: bool,
+            device) -> torch.Tensor:
+    """The device area the launch's split pass writes the 2n nets' bf16 weight pieces into."""
+    return torch.empty(lib.siren_attention_wgmma_pieces_bytes(hidden, d, n_layers, n, int(round_weights)),
+                       dtype=torch.uint8, device=device)
+
+
+def wgmma_attention_launch(k_records: list[int], v_records: list[int], n_layers: int, hidden: int,
+                           k_mean, k_std, v_mean, v_std, q: torch.Tensor, omega: float, seq_len: int, *,
+                           sin_impl: str, fm_mult: float | None, causal: bool, return_stats: bool,
+                           round_weights: bool):
+    """Launch csrc/siren_attention_wgmma.cu over two described net stacks: (N, T, D) fp32, with (m, l) when asked.
+    ``round_weights``: 2D's bf16 mode (one rounded piece a weight), else 2F's (three exact pieces). The caller counts
+    the launch."""
+    resolve_sin(sin_impl)  # validates the name
+    n, t, d = q.shape
+    device = q.device
+    if q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError("q must be contiguous float32")
+    _check_queries(seq_len, t, causal)
+    stats = [_flat_stat(x, n, d, device) for x in (k_mean, k_std, v_mean, v_std)]
+    chunks, tiles_per_chunk = _wgmma_attention_plan(n, seq_len, device.index or 0)
+    lib = _wgmma_attention_library()
+    pieces = _pieces(lib, hidden, d, n_layers, n, round_weights, device)
+    mult = multipliers(hidden, fm_mult, device)
+    part_ml = torch.empty(n, chunks, t, 2, dtype=torch.float32, device=device)
+    part_acc = torch.empty(n, chunks, t, d, dtype=torch.float32, device=device)
+    out = torch.empty(n, t, d, dtype=torch.float32, device=device)
+    m = torch.empty(n, t, dtype=torch.float32, device=device) if return_stats else None
+    l = torch.empty(n, t, dtype=torch.float32, device=device) if return_stats else None
+    k_desc = (ctypes.c_longlong * len(k_records))(*k_records)
+    v_desc = (ctypes.c_longlong * len(v_records))(*v_records)
+    status = lib.siren_attention_wgmma_launch(
+        k_desc, v_desc, n_layers, *(s.data_ptr() for s in stats), q.data_ptr(),
+        None if mult is None else mult.data_ptr(), pieces.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+        n, seq_len, t, hidden, d, float(omega), float(1.0 / math.sqrt(d)), int(sin_impl == "fast"),
+        int(round_weights), int(causal), chunks, tiles_per_chunk, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(lib, status, "siren_attention_wgmma_launch")
+    return (out, m, l) if return_stats else out
+
+
 def siren_attention_decode_fused(k_params, v_params, k_mean, k_std, v_mean, v_std, q, omega: float,
                                  seq_len: int, *, sin_impl: str = "fast", fm_mult: float | None = None,
                                  causal: bool = True, compute_dtype=torch.float32) -> torch.Tensor:
@@ -242,9 +333,16 @@ def siren_attention_decode_fused(k_params, v_params, k_mean, k_std, v_mean, v_st
                                             compute_dtype=compute_dtype)
     if k_stack.flat.device != q.device or v_stack.flat.device != q.device:
         raise ValueError("params and queries must be on the same device")
-    out = attention_launch(stack_records(k_stack), stack_records(v_stack), len(k_stack.dims), k_stack.dims[0][1],
-                           k_mean, k_std, v_mean, v_std, q, omega, seq_len, sin_impl=sin_impl,
-                           fm_mult=fm_mult, causal=causal, return_stats=False, compute_dtype=compute_dtype)
+    hidden, d_out, n_layers = k_stack.dims[0][1], k_stack.dims[-1][1], len(k_stack.dims)
+    records = (stack_records(k_stack), stack_records(v_stack), n_layers, hidden)
+    kw = dict(sin_impl=sin_impl, fm_mult=fm_mult, causal=causal, return_stats=False)
+    if compute_dtype == torch.bfloat16 and attention_route(hidden, d_out, q.shape[1]) == "wgmma":
+        out = wgmma_attention_launch(*records, k_mean, k_std, v_mean, v_std, q, omega, seq_len, round_weights=True,
+                                     **kw)
+        wgmma_launches["siren_attention_decode_fused"] += 1
+    else:
+        out = attention_launch(*records, k_mean, k_std, v_mean, v_std, q, omega, seq_len, compute_dtype=compute_dtype,
+                               **kw)
     launches["siren_attention_decode_fused"] += 1
     bf16_launches["siren_attention_decode_fused"] += compute_dtype == torch.bfloat16
     return out

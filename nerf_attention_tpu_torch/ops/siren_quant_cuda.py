@@ -28,34 +28,33 @@ returns bf16, 2F rounds p and V to bf16 for p.V and returns fp32. So 2F in
 bf16 on packed weights equals 2F in bf16 on the host-dequantized weights
 shipped dense (``scheme="fp32"``) bit for bit, not 2D's bf16 mode, which
 rounds the weights too. On the card, nets that ``bf16_route`` gives
-"wgmma" (2F: ``attention_route``) take the Hopper kernels of this mode,
-``csrc/siren_decode_act16.cu`` (2E) and ``csrc/siren_attention_wgmma.cu``
-(2F): each weight split into three exact bf16 pieces (``csrc/siren_wgmma.cuh``),
-wgmma products, counted in ``wgmma_launches``; other nets keep the layer
-stack's ``kAct16`` instance.
+"wgmma" (2F: ``siren_attention_cuda.attention_route``) take the Hopper
+kernels of this mode, ``csrc/siren_decode_act16.cu`` (2E) and
+``csrc/siren_attention_wgmma.cu`` (2F, launched by
+``siren_attention_cuda.wgmma_attention_launch``): each weight split into
+three exact bf16 pieces (``csrc/siren_wgmma.cuh``), wgmma products, counted
+in ``wgmma_launches``; other nets keep the layer stack's ``kAct16`` instance.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import numpy as np
 import torch
 
 from nerf_attention_tpu_torch.ops import _build
-from nerf_attention_tpu_torch.ops._launch import check_dims, chunking, layer_record, multipliers
+from nerf_attention_tpu_torch.ops._launch import check_dims, layer_record, multipliers
 from nerf_attention_tpu_torch.ops.fastmath import resolve_sin
 from nerf_attention_tpu_torch.ops.quantize import parse_scheme, quantize_params, split_scheme
 from nerf_attention_tpu_torch.ops.siren_attention_cuda import (
-    _check_queries,
-    _flat_stat,
     attention_launch,
+    attention_route,
     siren_attention_decode_plain,
+    wgmma_attention_launch,
 )
 from nerf_attention_tpu_torch.ops.siren_cuda import (
-    WGMMA_TILE_ROWS,
     bf16_route,
     decode_launch,
     precision,
@@ -70,8 +69,6 @@ launches = {"siren_decode_batch_quant": 0, "siren_attention_decode_quant": 0}
 # (csrc/siren_decode_act16.cu, csrc/siren_attention_wgmma.cu).
 bf16_launches = {"siren_decode_batch_quant": 0, "siren_attention_decode_quant": 0}
 wgmma_launches = {"siren_decode_batch_quant": 0, "siren_attention_decode_quant": 0}
-# csrc/siren_attention_wgmma.cu: kMaxQueries and kMaxHeadDim (its partial scores and V tile).
-WGMMA_MAX_QUERIES, WGMMA_MAX_HEAD_DIM = 16, 128
 
 _OPS_PER_LAYER = {"dense": 2, "int8": 3, "int4": 3, "int6": 4}
 
@@ -244,50 +241,27 @@ def resident_records(packed, device) -> tuple[list[int], list[int], list[torch.T
     return k_records, v_records, k_keep + v_keep
 
 
-def attention_route(hidden: int, d: int, n_queries: int) -> str:
-    """The kernel of 2F's bf16 mode for nets of these widths and ``n_queries`` queries: ``"wgmma"``
-    (csrc/siren_attention_wgmma.cu) where ``bf16_route`` takes the nets, ``d`` is at most
-    ``WGMMA_MAX_HEAD_DIM`` and ``n_queries`` at most ``WGMMA_MAX_QUERIES``, else ``"stack"``
-    (siren_attention_act16.cu, the layer stack)."""
-    fits = d <= WGMMA_MAX_HEAD_DIM and n_queries <= WGMMA_MAX_QUERIES
-    return "wgmma" if fits and bf16_route(hidden, d) == "wgmma" else "stack"
-
-
 def bind_act16(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib``, a build of csrc/siren_decode_act16.cu or csrc/siren_attention_wgmma.cu, with its entry points'
-    C types set."""
+    """``lib``, a build of csrc/siren_decode_act16.cu, with its entry points' C types set."""
     lib.siren_act16_pieces_bytes.restype = ctypes.c_longlong
     lib.siren_act16_pieces_bytes.argtypes = [ctypes.c_int] * 4
-    if hasattr(lib, "siren_decode_act16_launch"):
-        lib.siren_decode_act16_launch.restype = ctypes.c_int
-        lib.siren_decode_act16_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    if hasattr(lib, "siren_attention_wgmma_launch"):
-        lib.siren_attention_wgmma_launch.restype = ctypes.c_int
-        lib.siren_attention_wgmma_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.siren_attention_wgmma_smem.restype = ctypes.c_int
-        lib.siren_attention_wgmma_smem.argtypes = [ctypes.c_int] * 3
+    lib.siren_decode_act16_launch.restype = ctypes.c_int
+    lib.siren_decode_act16_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return lib
 
 
 @functools.cache
-def _act16_library(name: str) -> ctypes.CDLL:
-    return bind_act16(_build.load_library(name))
+def _act16_library() -> ctypes.CDLL:
+    return bind_act16(_build.load_library("siren_decode_act16"))
 
 
 @functools.cache
-def _act16_plan(n: int, seq_len: int, attention: bool, device_index: int) -> tuple[int, int]:
-    """(chunks, tiles per chunk) of a launch of n nets (2E) or heads (2F) over seq_len rows: one block an SM (their
-    shared memory), tiles of ``WGMMA_TILE_ROWS`` rows; 2E's as 2B/2C's bf16 kernel (``wgmma_chunking``), 2F's as
-    the attention kernels' (``chunking``)."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    if not attention:
-        return wgmma_chunking(n, seq_len, sms)
-    chunks, rows_per_chunk = chunking(n, seq_len, WGMMA_TILE_ROWS, sms)
-    return chunks, rows_per_chunk // WGMMA_TILE_ROWS
+def _act16_plan(n: int, seq_len: int, device_index: int) -> tuple[int, int]:
+    """(chunks, tiles per chunk) of a launch of n nets over seq_len rows, as 2B/2C's bf16 kernel's
+    (``wgmma_chunking``)."""
+    return wgmma_chunking(n, seq_len, torch.cuda.get_device_properties(device_index).multi_processor_count)
 
 
 def _pieces(lib: ctypes.CDLL, hidden: int, d_out: int, n_layers: int, nets: int, device) -> torch.Tensor:
@@ -297,13 +271,13 @@ def _pieces(lib: ctypes.CDLL, hidden: int, d_out: int, n_layers: int, nets: int,
 
 def act16_decode_launch(records: list[int], n_layers: int, n: int, hidden: int, d_out: int, device: torch.device,
                         omega: float, seq_len: int, sin_impl: str, fm_mult: float | None) -> torch.Tensor:
-    """Launch csrc/siren_decode_act16.cu (2E's bf16 mode on Hopper) over n described nets: (n, seq_len, d_out) bf16,
-    counted in ``wgmma_launches``."""
+    """Launch csrc/siren_decode_act16.cu (2E's bf16 mode on Hopper) over n described nets: (n, seq_len, d_out)
+    bf16. The caller counts the launch."""
     resolve_sin(sin_impl)  # validates the name
     if seq_len < 1:
         raise ValueError(f"seq_len must be positive, got {seq_len}")
-    chunks, tiles_per_chunk = _act16_plan(n, seq_len, False, device.index or 0)
-    lib = _act16_library("siren_decode_act16")
+    chunks, tiles_per_chunk = _act16_plan(n, seq_len, device.index or 0)
+    lib = _act16_library()
     pieces = _pieces(lib, hidden, d_out, n_layers, n, device)
     mult = multipliers(hidden, fm_mult, device)
     out = torch.empty(n, seq_len, d_out, dtype=torch.bfloat16, device=device)
@@ -314,43 +288,7 @@ def act16_decode_launch(records: list[int], n_layers: int, n: int, hidden: int, 
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(lib, status, "siren_decode_act16_launch")
-    wgmma_launches["siren_decode_batch_quant"] += 1
     return out
-
-
-def act16_attention_launch(k_records: list[int], v_records: list[int], n_layers: int, hidden: int,
-                           k_mean, k_std, v_mean, v_std, q: torch.Tensor, omega: float, seq_len: int, *,
-                           sin_impl: str, fm_mult: float | None, causal: bool, return_stats: bool):
-    """Launch csrc/siren_attention_wgmma.cu (2F's bf16 mode on Hopper) over two described net stacks: (N, T, D)
-    fp32, with (m, l) when asked, counted in ``wgmma_launches``."""
-    resolve_sin(sin_impl)  # validates the name
-    n, t, d = q.shape
-    device = q.device
-    if q.dtype != torch.float32 or not q.is_contiguous():
-        raise ValueError("q must be contiguous float32")
-    _check_queries(seq_len, t, causal)
-    stats = [_flat_stat(x, n, d, device) for x in (k_mean, k_std, v_mean, v_std)]
-    chunks, tiles_per_chunk = _act16_plan(n, seq_len, True, device.index or 0)
-    lib = _act16_library("siren_attention_wgmma")
-    pieces = _pieces(lib, hidden, d, n_layers, 2 * n, device)
-    mult = multipliers(hidden, fm_mult, device)
-    part_ml = torch.empty(n, chunks, t, 2, dtype=torch.float32, device=device)
-    part_acc = torch.empty(n, chunks, t, d, dtype=torch.float32, device=device)
-    out = torch.empty(n, t, d, dtype=torch.float32, device=device)
-    m = torch.empty(n, t, dtype=torch.float32, device=device) if return_stats else None
-    l = torch.empty(n, t, dtype=torch.float32, device=device) if return_stats else None
-    k_desc = (ctypes.c_longlong * len(k_records))(*k_records)
-    v_desc = (ctypes.c_longlong * len(v_records))(*v_records)
-    status = lib.siren_attention_wgmma_launch(
-        k_desc, v_desc, n_layers, *(s.data_ptr() for s in stats), q.data_ptr(),
-        None if mult is None else mult.data_ptr(), pieces.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
-        n, seq_len, t, hidden, d, float(omega), float(1.0 / math.sqrt(d)), int(sin_impl == "fast"), int(causal),
-        chunks, tiles_per_chunk, torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(lib, status, "siren_attention_wgmma_launch")
-    wgmma_launches["siren_attention_decode_quant"] += 1
-    return (out, m, l) if return_stats else out
 
 
 def _decode_dims(layout) -> tuple[int, int, int]:
@@ -388,6 +326,7 @@ def siren_decode_batch_quant(params, scheme: str, omega: float, seq_len: int, *,
     if compute_dtype == torch.bfloat16 and bf16_route(hidden, d_out) == "wgmma":
         out = act16_decode_launch(records, n_layers, ops[0].shape[0], hidden, d_out, device, omega, seq_len,
                                   sin_impl, fm_mult)
+        wgmma_launches["siren_decode_batch_quant"] += 1
     else:
         out = decode_launch(records, n_layers, ops[0].shape[0], hidden, d_out, device, omega, seq_len, sin_impl,
                             fm_mult, compute_dtype=compute_dtype, round_weights=False)
@@ -438,8 +377,9 @@ def siren_attention_decode_quant(k_params, v_params, k_mean, k_std, v_mean, v_st
     hidden, d_out, n_layers = _decode_dims(k_layout)
     if compute_dtype == torch.bfloat16 and attention_route(hidden, d_out, q.shape[1]) == "wgmma":
         del kw["compute_dtype"]
-        result = act16_attention_launch(k_records, v_records, n_layers, hidden, k_mean, k_std, v_mean, v_std, q,
-                                        omega, seq_len, **kw)
+        result = wgmma_attention_launch(k_records, v_records, n_layers, hidden, k_mean, k_std, v_mean, v_std, q,
+                                        omega, seq_len, round_weights=False, **kw)
+        wgmma_launches["siren_attention_decode_quant"] += 1
     else:
         result = attention_launch(k_records, v_records, n_layers, hidden, k_mean, k_std, v_mean, v_std, q, omega,
                                   seq_len, round_weights=False, **kw)

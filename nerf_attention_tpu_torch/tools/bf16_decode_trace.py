@@ -1,5 +1,6 @@
 """Where the bf16 modes' Hopper kernels spend a tile, on the GPU: 2B/2C's (``csrc/siren_decode_bf16.cu``), 2E's
-(``csrc/siren_decode_act16.cu``) and 2F's (``csrc/siren_attention_wgmma.cu``).
+(``csrc/siren_decode_act16.cu``), and 2F's and 2D's (``csrc/siren_attention_wgmma.cu``: three pieces a weight, or
+one rounded piece).
 
 Builds a copy of the kernel with clock stamps (``clock64``) added at fixed
 points of its source and of the shared ``csrc/siren_wgmma.cuh``
@@ -9,7 +10,7 @@ consumer warpgroup (its thread 0), in SM cycles a tile, averaged over the
 block's tiles:
 
   * ``layer0``: layer 0 (SIMT, its sines, into the A fragments), of every net
-    a tile runs (2F: the key net's and the value net's);
+    a tile runs (2D, 2F: the key net's and the value net's);
   * ``wait``: from a chunk's start to its last ``wgmma`` issued: waiting on
     the ring's ``full`` barriers for the chunk's weight pieces (``full_wait``,
     that part alone), and issuing while the tensor cores run its earlier
@@ -17,29 +18,31 @@ block's tiles:
     ``wait_later_tiles`` the mean of the others;
   * ``wgmma``: from the commit to the group's completion;
   * ``epilogue``: bias, omega, sine, bf16 and repacking (the last layer: its
-    stores, or 2F's scores and V rows);
+    stores, or 2D's and 2F's scores and V rows);
   * ``between``: from a net's last layer to the next net's layer 0: between
-    tiles, and in 2F the attention's own steps (the softmax, p.V, barriers);
+    tiles, and in 2D and 2F the attention's own steps (the softmax, p.V, barriers);
   * ``total``: the warpgroup's first stamp to its last.
 
 And for the producer's warp 0 (thread 0 of block (0, 0)), ``copies_back``:
 the copies it issued after waiting on a stage's ``empty`` barrier (2B/2C: its
-copies back from ``keep``; 2E, 2F: every copy of a ready piece) and the cycles
-it waited on each. The stamps cost a few instructions at each point, so the
-traced kernel's ms is printed beside the committed one's.
+copies back from ``keep``; 2D, 2E, 2F: every copy of a ready piece) and the
+cycles it waited on each. The stamps cost a few instructions at each point, so
+the traced kernel's ms is printed beside the committed one's.
 
-    python -m nerf_attention_tpu_torch.tools.bf16_decode_trace [--kernel 2C|2E|2F] [--nets N] [--seq_len S]
+    python -m nerf_attention_tpu_torch.tools.bf16_decode_trace [--kernel 2C|2D|2E|2F] [--nets N] [--seq_len S]
         [--sine exact|fast]
 
 Defaults: 2C the medium aggregate (512 nets, S=2048, exact sine); 2E 128
 `small` nets at S=512, int4_g128, fast sine (the plan path's shape); 2F 8
-medium heads at S=2048, T=1, int4_g128, fast sine (the attention ladder's).
+medium heads at S=2048, T=1, int4_g128, fast sine (the attention ladder's);
+2D the same heads over their dense fp32 weights (phase 3's timing shape).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 
 import numpy as np
@@ -104,6 +107,12 @@ KERNELS = {
          _tile_start("ti == lo && which == 0")
          + "            c.ft = ti == lo;\n            c.rows(L, a, an, acc, out);\n"),)),
 }
+KERNELS["2D"] = KERNELS["2F"]  # one kernel, one rounded piece a weight
+# Each kernel's library: the wrapper module, its cached loader and its binder.
+LIBRARIES = {"2C": ("siren_cuda", "_wgmma_library", "bind_wgmma"),
+             "2E": ("siren_quant_cuda", "_act16_library", "bind_act16"),
+             "2F": ("siren_attention_cuda", "_wgmma_attention_library", "bind_wgmma_attention")}
+LIBRARIES["2D"] = LIBRARIES["2F"]
 READERS = f"""
 extern "C" int read_trace(long long* host) {{
     return (int)cudaMemcpyFromSymbol(host, bf16wg::g_trace, sizeof(long long) * {TRACE_SLOTS});
@@ -137,7 +146,7 @@ def instrumented_sources(kernel: str = "2C") -> dict[str, str]:
 def build(kernel: str = "2C") -> ctypes.CDLL:
     """The traced kernel, built into the package's build directory (its traced header beside its source, so that
     the source's include finds it first)."""
-    from nerf_attention_tpu_torch.ops import _build, siren_cuda, siren_quant_cuda
+    from nerf_attention_tpu_torch.ops import _build
 
     folder = _build.BUILD_DIR / "trace" / kernel
     folder.mkdir(parents=True, exist_ok=True)
@@ -148,8 +157,8 @@ def build(kernel: str = "2C") -> ctypes.CDLL:
     partial = target.with_name(f"{target.name}.tmp")
     _build._compile([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", str(partial),
                      str(source)], partial, target, source)
-    lib = ctypes.CDLL(str(target))
-    lib = siren_cuda.bind_wgmma(lib) if kernel == "2C" else siren_quant_cuda.bind_act16(lib)
+    module, _, binder = LIBRARIES[kernel]
+    lib = getattr(importlib.import_module(f"nerf_attention_tpu_torch.ops.{module}"), binder)(ctypes.CDLL(str(target)))
     lib.read_trace.argtypes = [ctypes.c_void_p]
     return lib
 
@@ -169,14 +178,14 @@ def breakdown(counters: np.ndarray, tiles: int) -> dict:
 
 
 DEFAULTS = {"2C": dict(nets=512, seq_len=2048, sine="exact"), "2E": dict(nets=128, seq_len=512, sine="fast"),
-            "2F": dict(nets=8, seq_len=2048, sine="fast")}
+            "2F": dict(nets=8, seq_len=2048, sine="fast"), "2D": dict(nets=8, seq_len=2048, sine="fast")}
 SCHEME = "int4_g128"  # 2E's and 2F's packed weights
 
 
 def _runner(kernel: str, nets: int, seq_len: int, sin_impl: str, device: torch.device):
     """(the call, the block's tiles) of the kernel at this shape, through its wrapper."""
     from nerf_attention_tpu_torch.models.siren import SirenStack, init_siren
-    from nerf_attention_tpu_torch.ops import siren_cuda, siren_quant_cuda
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda, siren_cuda, siren_quant_cuda
     from nerf_attention_tpu_torch.ops._launch import chunking
     from nerf_attention_tpu_torch.tools.measure_attention_decode import attention_inputs
     from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME
@@ -184,13 +193,17 @@ def _runner(kernel: str, nets: int, seq_len: int, sin_impl: str, device: torch.d
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n_tiles = -(-seq_len // siren_cuda.WGMMA_TILE_ROWS)
     bf16 = torch.bfloat16
-    if kernel == "2F":
+    if kernel in ("2D", "2F"):
         k, v, stats, q = attention_inputs(CONFIGS_BY_NAME["medium"], nets, 1, 128, torch.Generator().manual_seed(44),
                                           device)
-        packed = tuple(siren_quant_cuda.pack_resident_params(s.params(), SCHEME) for s in (k, v))
-        run = lambda: siren_quant_cuda.siren_attention_decode_quant(  # noqa: E731
-            None, None, *stats, q, SCHEME, 30.0, seq_len, packed=packed, sin_impl=sin_impl, causal=False,
-            compute_dtype=bf16)
+        kw = dict(sin_impl=sin_impl, causal=False, compute_dtype=bf16)
+        if kernel == "2D":
+            run = lambda: siren_attention_cuda.siren_attention_decode_fused(  # noqa: E731
+                k, v, *stats, q, 30.0, seq_len, **kw)
+        else:
+            packed = tuple(siren_quant_cuda.pack_resident_params(s.params(), SCHEME) for s in (k, v))
+            run = lambda: siren_quant_cuda.siren_attention_decode_quant(  # noqa: E731
+                None, None, *stats, q, SCHEME, 30.0, seq_len, packed=packed, **kw)
         _, rows = chunking(nets, seq_len, siren_cuda.WGMMA_TILE_ROWS, sms)
         return run, min(rows // siren_cuda.WGMMA_TILE_ROWS, n_tiles)
     config = CONFIGS_BY_NAME["medium" if kernel == "2C" else "small"]
@@ -211,14 +224,15 @@ def _runner(kernel: str, nets: int, seq_len: int, sin_impl: str, device: torch.d
 def trace(nets: int = 512, seq_len: int = 2048, sin_impl: str = "exact", device: torch.device | None = None,
           kernel: str = "2C") -> dict:
     """One traced run of the kernel at this shape, and the committed and traced kernels' ms."""
-    from nerf_attention_tpu_torch.ops import _build, siren_cuda, siren_quant_cuda
+    from nerf_attention_tpu_torch.ops import _build, siren_cuda
     from nerf_attention_tpu_torch.utils.timing import per_launch_ms
 
     device = device or torch.device("cuda")
     run, tiles = _runner(kernel, nets, seq_len, sin_impl, device)
     committed_ms = float(np.median(per_launch_ms(run, 10, 3, device)))
     lib = build(kernel)
-    module, attr = (siren_cuda, "_wgmma_library") if kernel == "2C" else (siren_quant_cuda, "_act16_library")
+    name, attr, _ = LIBRARIES[kernel]
+    module = importlib.import_module(f"nerf_attention_tpu_torch.ops.{name}")
     committed = getattr(module, attr)
     setattr(module, attr, lambda *_: lib)
     siren_cuda._wgmma_plan.cache_clear()

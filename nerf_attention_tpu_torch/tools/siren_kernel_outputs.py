@@ -8,16 +8,17 @@ checkouts to each other bit for bit, and 2B/2C's bf16 mode beside fp32.
 ``--out``: every fp32 output at ``DECODE_CASES`` (2B/2C) and ``TRAIN_CASES``
 (2A's loss and gradients), 2B/2C's bf16 mode at ``BF16_CASES`` (each beside
 its plain version's output), and with ``--attention`` at ``ATTENTION_CASES``
-(2D, 2F with its stats, 2E; fp32, and again in their bf16 modes, 2E's and 2F's
-beside their plain versions' outputs), saved with ``torch.save``. Run as a
+(2D, 2F with its stats, 2E; fp32, and again in their bf16 modes, each beside
+its plain version's output), saved with ``torch.save``. Run as a
 file, it uses the kernels of whichever checkout ``PYTHONPATH`` names first, so
 a parent commit unpacked by ``git archive`` is run by the same cases.
 ``--compare``: whether two such files are equal bit for bit, case by case of
 the first (exit status 1 if any differs), and for each case saved beside its
-plain version's output that both hold, each file's kernel output in ulps
-against that plain output: what a case that changed on purpose is held to.
+plain version's output that either holds (an older checkout saved 2D's bf16
+cases alone), each file's kernel output in ulps against that plain output: what
+a case that changed on purpose is held to.
 ``--modes``: 2B/2C's bf16 mode at N 1, 40 and 512 (medium, S=2048), and with
-``--attention`` 2E's and 2F's bf16 modes at ``ACT16_MODES`` (their table
+``--attention`` the bf16 modes of 2E, 2F and 2D at ``ACT16_MODES`` (their table
 shapes), against their plain versions in bf16 ulps of the largest |output|,
 and each mode's time: the median of 3 samples of back-to-back calls between
 CUDA events, per call. Inputs are random from fixed seeds; on the CPU the
@@ -78,9 +79,11 @@ ATTENTION_CASES = {
     "2E decode int4_g128 N=40 S=2048": (40, 0, 2048, False, "int4_g128"),
     "2E decode int4_g128 small N=128 S=512": (128, 0, 512, False, "int4_g128", (128, 1)),
 }
-# 2E's and 2F's bf16 modes timed by --modes --attention, at PERF.md's table shapes: name: (nets or heads, S, hidden,
-# hidden layers); int4_g128 weights, fast sine, 2F with T=1 over the whole window.
-ACT16_MODES = {"2E small N=128 S=512": (128, 512, 128, 1), "2F medium N=8 S=2048 T=1": (8, 2048, 256, 2)}
+# The bf16 modes of the Hopper kernels over csrc/siren_wgmma.cuh timed by --modes --attention, at PERF.md's table
+# shapes: name: (nets or heads, S, hidden, hidden layers); fast sine, 2E and 2F on int4_g128 weights, 2D on dense
+# fp32 ones, 2F and 2D with T=1 over the whole window.
+ACT16_MODES = {"2E small N=128 S=512": (128, 512, 128, 1), "2F medium N=8 S=2048 T=1": (8, 2048, 256, 2),
+               "2D medium N=8 S=2048 T=1": (8, 2048, 256, 2)}
 MODE_NETS = (1, 40, 512)
 MODE_SHAPE = (256, 2, 2048)  # medium nets (hidden, hidden layers) at S=2048
 
@@ -113,8 +116,8 @@ def outputs(device) -> dict[str, list[torch.Tensor]]:
 
 
 def attention_outputs(device) -> dict[str, list[torch.Tensor]]:
-    """Every ``ATTENTION_CASES`` output in fp32 (2F's with its m and l), and in the bf16 mode (the name + " bf16";
-    2E's and 2F's followed by their plain version's output), on the host."""
+    """Every ``ATTENTION_CASES`` output in fp32 (2F's with its m and l), and in the bf16 mode (the name + " bf16",
+    followed by its plain version's output), on the host."""
     from nerf_attention_tpu_torch.ops import siren_attention_cuda, siren_quant_cuda as sq
 
     out = {}
@@ -138,6 +141,9 @@ def attention_outputs(device) -> dict[str, list[torch.Tensor]]:
             if scheme is None:
                 out[name + suffix] = [siren_attention_cuda.siren_attention_decode_fused(k, v, *stats, q, 30.0, seq_len,
                                                                                         **kw).cpu()]
+                if bf16:
+                    out[name + suffix].append(siren_attention_cuda.siren_attention_decode_plain(
+                        k, v, *stats, q, 30.0, seq_len, **kw).cpu())
             else:
                 packed = tuple(sq.pack_resident_params(x.params(), scheme) for x in (k, v))
                 out[name + suffix] = [x.cpu() for x in sq.siren_attention_decode_quant(
@@ -159,15 +165,25 @@ def _ulps(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def _with_plain() -> list[str]:
-    """The cases saved with their plain version's output last: BF16_CASES, and 2E's and 2F's bf16 cases."""
-    return [*BF16_CASES, *(f"{name} bf16" for name, case in ATTENTION_CASES.items() if case[4] is not None)]
+    """The cases saved with their plain version's output last: BF16_CASES, and every attention case's bf16 mode."""
+    return [*BF16_CASES, *(f"{name} bf16" for name in ATTENTION_CASES)]
+
+
+def _plain(x: list[torch.Tensor], name: str) -> torch.Tensor | None:
+    """A case's plain output, where the file saved it: last, after the kernel's outputs (2F's bf16: o, m, l)."""
+    return x[-1] if len(x) > (3 if name.startswith("2F") else 1) else None
 
 
 def against_plain(a: dict, b: dict) -> dict[str, tuple[float, float]]:
-    """Per case saved beside its plain version's output that both files hold: each one's kernel output in ulps
-    against that plain output."""
-    return {name: (_ulps(a[name][0], a[name][-1]), _ulps(b[name][0], b[name][-1])) for name in _with_plain()
-            if name in a and name in b}
+    """Per case with a plain version's output that both files hold, and that either saved beside it: each one's
+    kernel output in ulps against that plain output."""
+    out = {}
+    for name in _with_plain():
+        if name in a and name in b:
+            plain = _plain(a[name], name) if _plain(a[name], name) is not None else _plain(b[name], name)
+            if plain is not None:
+                out[name] = (_ulps(a[name][0], plain), _ulps(b[name][0], plain))
+    return out
 
 
 def modes(device) -> list[dict]:
@@ -194,8 +210,9 @@ def modes(device) -> list[dict]:
 
 
 def act16_modes(device) -> list[dict]:
-    """2E's and 2F's bf16 modes at ACT16_MODES against their plain versions, and their times beside their fp32
-    modes'."""
+    """The bf16 modes of 2E, 2F and 2D at ACT16_MODES against their plain versions, and their times beside their
+    fp32 modes'."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
     from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
 
     rows = []
@@ -211,12 +228,18 @@ def act16_modes(device) -> list[dict]:
             gen = torch.Generator().manual_seed(800 + i)
             stats = [(torch.rand(n, 1, D, generator=gen) + 0.5).to(device) for _ in range(4)]
             q = torch.randn(n, 1, D, generator=gen).to(device)
-            packed = tuple(sq.pack_resident_params(x.params(), "int4_g128") for x in (k, v))
             kw = dict(sin_impl="fast", causal=False)
-            call = lambda dtype: sq.siren_attention_decode_quant(  # noqa: E731
-                None, None, *stats, q, "int4_g128", 30.0, seq_len, packed=packed, compute_dtype=dtype, **kw)
-            want = sq.siren_attention_decode_quant_plain(packed, *stats, q, 30.0, seq_len, compute_dtype=torch.bfloat16,
-                                                         **kw)
+            if name.startswith("2D"):
+                call = lambda dtype: sa.siren_attention_decode_fused(  # noqa: E731
+                    k, v, *stats, q, 30.0, seq_len, compute_dtype=dtype, **kw)
+                want = sa.siren_attention_decode_plain(k, v, *stats, q, 30.0, seq_len, compute_dtype=torch.bfloat16,
+                                                       **kw)
+            else:
+                packed = tuple(sq.pack_resident_params(x.params(), "int4_g128") for x in (k, v))
+                call = lambda dtype: sq.siren_attention_decode_quant(  # noqa: E731
+                    None, None, *stats, q, "int4_g128", 30.0, seq_len, packed=packed, compute_dtype=dtype, **kw)
+                want = sq.siren_attention_decode_quant_plain(packed, *stats, q, 30.0, seq_len,
+                                                             compute_dtype=torch.bfloat16, **kw)
         row = {"case": name, "ulps_vs_plain": _ulps(call(torch.bfloat16), want)}
         reps = 50 if device.type == "cuda" else 1
         for dtype in (torch.float32, torch.bfloat16):
@@ -231,7 +254,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--compare", type=str, nargs=2, default=None, metavar=("A", "B"))
     parser.add_argument("--modes", action="store_true", help="the bf16 modes against their plain versions and fp32")
     parser.add_argument("--attention", action="store_true",
-                        help="--out also holds 2D, 2E and 2F's outputs, fp32 and bf16; --modes also times 2E and 2F")
+                        help="--out also holds 2D, 2E and 2F's outputs, fp32 and bf16; --modes also times their "
+                             "Hopper kernels' bf16 modes")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
     if args.compare:

@@ -10,6 +10,8 @@ the CPU, by the other ``tests/test_torch_*.py`` files; the tolerances are
 theirs.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1185,11 +1187,12 @@ def test_act16_attention_kernel_route_by_rule(cuda_device, hidden, d, t, route):
     _bf16_close(got, sq.siren_attention_decode_quant_plain(packed, *stats, q, 30.0, 300, **kw))
 
 
-def act16_pieces(weights, hidden: int) -> np.ndarray:
+def act16_pieces(weights, hidden: int, splits: int = 3) -> np.ndarray:
     """The pieces buffer of one net as csrc/siren_wgmma.cuh's split pass writes it, as uint16 bf16 bits, from the
     fp32 weights of layers 1..L-1 ((rows, cols) each, on the CPU). For each layer, 64-column chunk c, split (w3, w2,
-    w1: w1 = bf16(w), w2 = bf16(w - w1), w3 = bf16(w - w1 - w2)) and 64-row k atom: a 64 x 64 region, zero past the
-    layer's rows and columns, element (row, col) at row * 64 + 8 ((col / 8) ^ (row % 8)) + col % 8."""
+    w1: w1 = bf16(w), w2 = bf16(w - w1), w3 = bf16(w - w1 - w2); with ``splits`` 1, w1 alone: 2D's rounded weights)
+    and 64-row k atom: a 64 x 64 region, zero past the layer's rows and columns, element (row, col) at row * 64 + 8
+    ((col / 8) ^ (row % 8)) + col % 8."""
     ka_n = -(-hidden // 64)
     row, col = np.arange(64)[:, None], np.arange(64)[None, :]
     dest = (row * 64 + ((col // 8) ^ (row % 8)) * 8 + col % 8).ravel()
@@ -1202,9 +1205,9 @@ def act16_pieces(weights, hidden: int) -> np.ndarray:
         w1 = padded.to(torch.bfloat16)
         r1 = padded - w1.float()
         w2 = r1.to(torch.bfloat16)
-        splits = [(r1 - w2.float()).to(torch.bfloat16), w2, w1]
+        pieces = [(r1 - w2.float()).to(torch.bfloat16), w2, w1][3 - splits:]
         for c in range(padded.shape[1] // 64):
-            for piece in splits:
+            for piece in pieces:
                 for ka in range(ka_n):
                     bits = piece[ka * 64:(ka + 1) * 64, c * 64:(c + 1) * 64].contiguous().view(torch.int16)
                     stage = np.empty(64 * 64, np.uint16)
@@ -1227,10 +1230,13 @@ def test_act16_split_pass_writes_every_piece_bit_for_bit(cuda_device, monkeypatc
     from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
     from nerf_attention_tpu_torch.tools.measure_attention_decode import attention_inputs
 
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+
     config = CONFIGS_BY_NAME[config_name]
     buffers = []
-    make = sq._pieces
-    monkeypatch.setattr(sq, "_pieces", lambda *a: buffers.append(make(*a)) or buffers[-1])
+    module = sq if kernel == "2E" else sa  # each launcher's pieces area
+    make = module._pieces
+    monkeypatch.setattr(module, "_pieces", lambda *a: buffers.append(make(*a)) or buffers[-1])
     kw = dict(sin_impl="fast", compute_dtype=torch.bfloat16)
     if kernel == "2E":
         stacks = [_stack(config_name, 5, cuda_device, seed=7)]
@@ -1249,5 +1255,159 @@ def test_act16_split_pass_writes_every_piece_bit_for_bit(cuda_device, monkeypatc
         want += [act16_pieces([w[n].cpu() for w, _ in params[1:]], config.hidden_features)
                  for n in range(params[0][0].shape[0])]
     want = np.concatenate(want)
+    assert got.shape == want.shape
+    assert np.array_equal(got, want), f"{int((got != want).sum())} of {got.size} bf16 values differ"
+
+
+# Kernel 2D's bf16 mode on Hopper (csrc/siren_attention_wgmma.cu with one rounded bf16 piece a weight, one wgmma
+# chain a product), within attention_route; the layer stack's kBF16 instance past it.
+def _rounded_case(hidden, layers, d, n, t, device, seed):
+    from nerf_attention_tpu_torch.tools.measure_attention_decode import attention_inputs
+
+    k, v, stats, q = attention_inputs(SIRENConfig(hidden, layers, 30.0, "case"), n, t, d,
+                                      torch.Generator().manual_seed(seed), device)
+    return k, v, *stats, q
+
+
+WGMMA_2D_CASES = [  # (n, t, seq_len, causal, hidden, hidden layers, d, sin_impl, fm)
+    (8, 1, 2048, False, 256, 2, 128, "fast", None), (4, 4, 300, True, 256, 2, 128, "exact", None),
+    (4, 16, 2048, True, 256, 2, 128, "fast", 64.0), (2, 16, 129, False, 96, 2, 64, "exact", None),
+    (3, 4, 500, True, 64, 1, 64, "fast", 64.0), (2, 1, 32768, True, 256, 2, 128, "fast", None),
+    (2, 1, 1, True, 256, 2, 128, "fast", None), (2, 4, 700, False, 64, 3, 128, "exact", 64.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, t, seq_len, causal, hidden, layers, d, sin_impl, fm", WGMMA_2D_CASES,
+                         ids=["ladder", "T4-exact-ragged", "T16-fm", "hidden96-D64-exact", "hidden64-D64-fm",
+                              "S32768", "S1", "hidden64-deep-fm-exact"])
+def test_attention_bf16_wgmma_kernel_matches_plain(cuda_device, n, t, seq_len, causal, hidden, layers, d, sin_impl,
+                                                   fm):
+    """2D in bf16 on csrc/siren_attention_wgmma.cu: one launch counted in ``wgmma_launches``, the output within
+    BF16_ULPS of the plain version, unlike the fp32 mode's, and bit for bit equal on a second run."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+
+    args = _rounded_case(hidden, layers, d, n, t, cuda_device, seed=seq_len + t + hidden)
+    kw = dict(sin_impl=sin_impl, fm_mult=fm, causal=causal, compute_dtype=torch.bfloat16)
+    assert sa.attention_route(hidden, d, t) == "wgmma"
+    before = sa.wgmma_launches["siren_attention_decode_fused"]
+    got = sa.siren_attention_decode_fused(*args, 30.0, seq_len, **kw)
+    torch.cuda.synchronize()
+    assert sa.wgmma_launches["siren_attention_decode_fused"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n, t, d)
+    _bf16_close(got, sa.siren_attention_decode_plain(*args, 30.0, seq_len, **kw))
+    assert torch.equal(got, sa.siren_attention_decode_fused(*args, 30.0, seq_len, **kw))
+    fp32 = {**kw, "compute_dtype": torch.float32}
+    assert not torch.equal(got, sa.siren_attention_decode_fused(*args, 30.0, seq_len, **fp32))
+
+
+# The kernel's bias tables and layer 0 row hold bf16-rounded values, which no output check at BF16_ULPS tells from
+# fp32 ones: the plain version with either table left fp32 sits at least TABLE_GAIN times farther (relative RMS)
+# from the bf16 plain version than the kernel does, on each net's side (``table_gaps``).
+TABLE_GAIN = 10.0
+
+
+def unrounded_table_plain(k, v, k_mean, k_std, v_mean, v_std, q, omega, seq_len, table: str, **kw):
+    """2D's bf16 plain version with one of the kernel's tables left fp32: ``table`` "bias" (every layer's bias) or
+    "layer0" (layer 0's weight row); the hidden and final weights and the activations still rounded."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+
+    def params(stack):
+        return [(w if i == 0 and table == "layer0" else w.to(torch.bfloat16).float(),
+                 b if table == "bias" else b.to(torch.bfloat16).float()) for i, (w, b) in enumerate(stack.params())]
+
+    return sa.siren_attention_decode_plain(params(k), params(v), k_mean, k_std, v_mean, v_std, q, omega, seq_len,
+                                           round_weights=False, **kw)
+
+
+def _rel_rms(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).square().mean().sqrt() / want.square().mean().sqrt()).item()
+
+
+def table_gaps(got_m, got_zero, k, v, k_mean, k_std, v_mean, v_std, q, omega, seq_len, **kw) -> dict[str, float]:
+    """For each table the kernel rounds ("bias", "layer0"): how many times farther from 2D's bf16 plain version
+    (relative RMS) the plain version with that table left fp32 sits than the kernel does, the lesser of the two
+    nets' sides. The key net's side is the softmax max m (``got_m``, the kernel's at q), which p's rounding does
+    not reach; the value net's is the output at q = 0 (``got_zero``), where every score is 0 and p = 1 exactly."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+
+    stats, zero = (k_mean, k_std, v_mean, v_std), torch.zeros_like(q)
+    want_m = sa.siren_attention_decode_plain(k, v, *stats, q, omega, seq_len, return_stats=True, **kw)[1]
+    want_zero = sa.siren_attention_decode_plain(k, v, *stats, zero, omega, seq_len, **kw)
+    near = (_rel_rms(got_m, want_m), _rel_rms(got_zero, want_zero))
+    gaps = {}
+    for table in ("bias", "layer0"):
+        far = (_rel_rms(unrounded_table_plain(k, v, *stats, q, omega, seq_len, table, return_stats=True, **kw)[1],
+                        want_m),
+               _rel_rms(unrounded_table_plain(k, v, *stats, zero, omega, seq_len, table, **kw), want_zero))
+        gaps[table] = min(f / n if n > 0 else math.inf for f, n in zip(far, near))
+    return gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, t, seq_len, causal, hidden, layers, d, sin_impl, fm",
+                         [WGMMA_2D_CASES[i] for i in (0, 2, 3, 7)],
+                         ids=["ladder", "T16-fm", "hidden96-D64-exact", "hidden64-deep-fm-exact"])
+def test_attention_bf16_wgmma_tables_are_rounded(cuda_device, n, t, seq_len, causal, hidden, layers, d, sin_impl,
+                                                 fm):
+    """2D in bf16 on csrc/siren_attention_wgmma.cu rounds its bias tables and layer 0 row to bf16: the plain
+    version with the biases or layer 0's row left fp32 sits at least TABLE_GAIN times farther from the bf16 plain
+    version than the kernel does, on the key net's side (the softmax max m, from the kernel's launch with its stats)
+    and on the value net's (the output at q = 0)."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+    from nerf_attention_tpu_torch.ops._launch import stack_records
+
+    k, v, *stats, q = _rounded_case(hidden, layers, d, n, t, cuda_device, seed=seq_len + t + hidden)
+    kw = dict(sin_impl=sin_impl, fm_mult=fm, causal=causal)
+    _, got_m, _ = sa.wgmma_attention_launch(stack_records(k), stack_records(v), len(k.dims), hidden, *stats, q, 30.0,
+                                            seq_len, return_stats=True, round_weights=True, **kw)
+    got_zero = sa.siren_attention_decode_fused(k, v, *stats, torch.zeros_like(q), 30.0, seq_len,
+                                               compute_dtype=torch.bfloat16, **kw)
+    gaps = table_gaps(got_m, got_zero, k, v, *stats, q, 30.0, seq_len, compute_dtype=torch.bfloat16, **kw)
+    assert min(gaps.values()) >= TABLE_GAIN, gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden, d, t, route", [
+    (256, 256, 1, "stack"), (256, 128, 17, "stack"), (512, 128, 1, "stack"), (96, 18, 2, "stack"),
+    (96, 20, 4, "wgmma"),
+], ids=["D256-stack", "T17-stack", "large-stack", "D18-stack", "hidden96-D20"])
+def test_attention_bf16_route_by_rule(cuda_device, hidden, d, t, route):
+    """Calls attention_route sends elsewhere (D > 128, T > 16, wide or unaligned nets) keep the layer stack's kBF16
+    instance, no wgmma launch counted; both routes hold to the plain version."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+
+    args = _rounded_case(hidden, 2, d, 2, t, cuda_device, seed=t + d)
+    assert sa.attention_route(hidden, d, t) == route
+    kw = dict(sin_impl="fast", causal=True, compute_dtype=torch.bfloat16)
+    before = (sa.launches["siren_attention_decode_fused"], sa.wgmma_launches["siren_attention_decode_fused"])
+    got = sa.siren_attention_decode_fused(*args, 30.0, 300, **kw)
+    torch.cuda.synchronize()
+    assert (sa.launches["siren_attention_decode_fused"], sa.wgmma_launches["siren_attention_decode_fused"]) == (
+        before[0] + 1, before[1] + (route == "wgmma"))
+    _bf16_close(got, sa.siren_attention_decode_plain(*args, 30.0, 300, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config_name", ["medium", "small", "tiny", "deep"])
+def test_attention_bf16_split_pass_writes_every_rounded_piece_bit_for_bit(cuda_device, monkeypatch, config_name):
+    """The pieces 2D's bf16 launch leaves in device memory equal ``act16_pieces`` with one split: bf16(w) of every
+    weight of every key net, then every value net, in wgmma's B layout and the consumers' order, every bit."""
+    from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
+    from nerf_attention_tpu_torch.tools.measure_attention_decode import attention_inputs
+
+    config = CONFIGS_BY_NAME[config_name]
+    buffers = []
+    make = sa._pieces
+    monkeypatch.setattr(sa, "_pieces", lambda *a: buffers.append(make(*a)) or buffers[-1])
+    k, v, stats, q = attention_inputs(config, 3, 2, D, torch.Generator().manual_seed(9), cuda_device)
+    sa.siren_attention_decode_fused(k, v, *stats, q, config.omega_0, 300, sin_impl="fast", causal=True,
+                                    compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert len(buffers) == 1
+    got = buffers[0].cpu().numpy().view(np.uint16)
+    want = np.concatenate([act16_pieces([w[n].cpu() for w, _ in s.params()[1:]], config.hidden_features, splits=1)
+                           for s in (k, v) for n in range(3)])
     assert got.shape == want.shape
     assert np.array_equal(got, want), f"{int((got != want).sum())} of {got.size} bf16 values differ"

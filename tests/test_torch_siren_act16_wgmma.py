@@ -39,6 +39,7 @@ from nerf_attention_tpu.ops.siren_quant_pallas import (
     siren_decode_batch_quant as jax_decode_quant,
 )
 from nerf_attention_tpu_torch.models.siren import fm_frequency_multipliers, positions
+from nerf_attention_tpu_torch.ops import siren_attention_cuda as sa
 from nerf_attention_tpu_torch.ops import siren_cuda
 from nerf_attention_tpu_torch.ops import siren_quant_cuda as sq
 from nerf_attention_tpu_torch.ops._launch import chunking
@@ -213,9 +214,12 @@ def test_prepass_writes_the_pieces_in_the_consumers_order(hidden, d, n_layers):
     """Every region the pre-pass's blocks split (block q: layer i, chunk c, k atom ka) lands where the consumers'
     walk (layer, chunk, split w3 / w2 / w1, k atom) takes it, and the walk covers the net's pieces once. The index
     expressions are the sources' own."""
-    assert "const int first = ((i - 1) * hch + c) * kSplits * KA + ka;" in HEADER
+    assert "const int first = ((i - 1) * hch + c) * SPLITS * KA + ka;" in HEADER
     assert "const int pc = p + (c * SPLITS + sp) * KA + ka;" in HEADER
-    assert "return kSplits * KA * ((L - 2) * KA + dch);" in HEADER
+    assert "return splits * KA * ((L - 2) * KA + dch);" in HEADER
+    assert "split_launch<SPLITS>(knet, vnet, N, 2 * N, L, H, D, pieces, st)" in (CSRC / "siren_attention_wgmma.cu"
+                                                                                ).read_text()
+    assert "split_launch<kSplits>(net, net, N, N, L, H, D, pieces, st)" in (CSRC / "siren_decode_act16.cu").read_text()
     gen = torch.Generator().manual_seed(hidden + d)
     weights = [torch.randn(hidden, hidden if i < n_layers - 1 else d, generator=gen) for i in range(1, n_layers)]
     ka_n, hch, dch = -(-hidden // PIECE), -(-hidden // PIECE), -(-d // PIECE)
@@ -301,13 +305,14 @@ def act16_net(params, omega: float, seq_len: int, fm_mult, sin_impl: str) -> tor
 
 
 def act16_attention(k_params, v_params, k_mean, k_std, v_mean, v_std, q, omega: float, seq_len: int, *,
-                    sin_impl: str, fm_mult, causal: bool):
+                    sin_impl: str, fm_mult, causal: bool, net=act16_net):
     """(out, m, l) in the attention kernel's order: K, V from the nets (V rounded to bf16), per 128-row tile the
     scores chunk by chunk of 64 columns, masked to -inf, the online softmax (m, l, alpha), acc += bf16(p) . V; the
-    tiles cut into chunks as the kernel's launch does on SMS SMs, each chunk's (m, l, acc) merged in order."""
+    tiles cut into chunks as the kernel's launch does on SMS SMs, each chunk's (m, l, acc) merged in order. ``net``:
+    the nets' arithmetic (ACT16's three chains; the rounded one-chain net of 2D's bf16 mode)."""
     n, t, d = q.shape
-    k = act16_net(k_params, omega, seq_len, fm_mult, sin_impl) * k_std + k_mean
-    v = _bf16(act16_net(v_params, omega, seq_len, fm_mult, sin_impl) * v_std + v_mean)
+    k = net(k_params, omega, seq_len, fm_mult, sin_impl) * k_std + k_mean
+    v = _bf16(net(v_params, omega, seq_len, fm_mult, sin_impl) * v_std + v_mean)
     qs = q * (1.0 / math.sqrt(d))
     pos = torch.arange(seq_len)
     last = (seq_len - t + torch.arange(t)) if causal else torch.full((t,), seq_len - 1)
@@ -418,7 +423,7 @@ def test_attention_route(hidden, d, t, want):
 
 def test_route_constants_are_the_kernels():
     attention = (CSRC / "siren_attention_wgmma.cu").read_text()
-    for name, value in (("kMaxQueries", sq.WGMMA_MAX_QUERIES), ("kMaxHeadDim", sq.WGMMA_MAX_HEAD_DIM)):
+    for name, value in (("kMaxQueries", sa.WGMMA_MAX_QUERIES), ("kMaxHeadDim", sa.WGMMA_MAX_HEAD_DIM)):
         assert re.search(rf"constexpr int {name} = (\d+);", attention).group(1) == str(value), name
     assert re.search(r"constexpr int kSplits = (\d+);", HEADER).group(1) == "3"
     decode = (CSRC / "siren_decode_act16.cu").read_text()
@@ -441,7 +446,7 @@ def test_cpu_calls_run_the_plain_versions_uncounted():
 
 # ---- the trace tool over the new kernels ----
 
-@pytest.mark.parametrize("kernel, own_stamps", [("2C", 2), ("2E", 0), ("2F", 1)])
+@pytest.mark.parametrize("kernel, own_stamps", [("2C", 2), ("2E", 0), ("2F", 1), ("2D", 1)])
 def test_trace_tool_stamps_each_kernel(kernel, own_stamps):
     """tools/bf16_decode_trace.py finds each of its anchors once in the shared header and in the kernel's source."""
     from nerf_attention_tpu_torch.tools import bf16_decode_trace as tool

@@ -157,8 +157,8 @@ def test_kernel_outputs_tool_attention_cases_on_the_cpu(tmp_path, monkeypatch, c
     assert tool.main(["--out", b, "--device", "cpu"]) == 0
     dump = torch.load(a)
     assert [len(dump[k]) for k in ("2C tiny", "2D", "2F", "2E decode")] == [1, 1, 3, 1]
-    # the bf16 modes beside, 2F's and 2E's followed by their plain version's output
-    assert [len(dump[k]) for k in ("2D bf16", "2F bf16", "2E decode bf16")] == [1, 4, 2]
+    # the bf16 modes beside, each followed by its plain version's output
+    assert [len(dump[k]) for k in ("2D bf16", "2F bf16", "2E decode bf16")] == [2, 4, 2]
     assert dump["2E decode bf16"][0].dtype == torch.bfloat16 and not torch.equal(dump["2D bf16"][0], dump["2D"][0])
     assert tool.main(["--compare", b, a]) == 0 and tool.main(["--compare", a, b]) == 1  # b lacks the attention cases
     assert "7 cases saved" in capsys.readouterr().out

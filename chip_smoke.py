@@ -7,8 +7,12 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
 
   1. device   the card, its power limit, torch and CUDA versions (no GPU: exit 1)
   2. build    every CUDA kernel from nerf_attention_tpu_torch/csrc with nvcc,
-              one nvcc per source, and the host generator csrc/synthkv.cpp
-              with g++, all started together
+              one nvcc per source (two for the four slowest, one a sine:
+              ops/_build.py's PARTS), and the host generator csrc/synthkv.cpp
+              with g++, all started together; this phase waits for the
+              study's libraries (2A, 2B/2C/2E, 2C's bf16 mode, the
+              generator), phases 4 and 5 run next while the others compile,
+              and "2 build, the rest" waits for those before phase 3
   3. kernels  each kernel against its plain PyTorch version at the main paths'
               shapes (sweep and decode: S=2048, D=128; 2A at all 7 configs,
               N=40, exact and fast sine, at the plan path's 128 `small`
@@ -84,10 +88,10 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               the same inputs: bit-identical
  10. mla      the MLA decode path: the MLA ladder tool at DeepSeek-V2-Lite's
               widths (H=16, kv_lora_rank 512, rope 64, hidden 2048, dense FFN
-              10944, bf16, YaRN rope scaling), S=1024/4096/16384/32768, all
-              legs and schemes int8_g32, int4_g64; cut to 4 dense layers and
-              a 4096-row vocabulary (the step reads one embedding row, no LM
-              head)
+              10944, bf16, YaRN rope scaling), S=1024/32768 (of the tool's
+              1024-32768), all legs and schemes int8_g32, int4_g64; cut to 4
+              dense layers and a 4096-row vocabulary (the step reads one
+              embedding row, no LM head)
  11. launches kernels 2G and 2H were launched by phase 10 (counters zeroed
               just before it); the ladder's JSON: finite medians, the legs'
               output cosines
@@ -96,12 +100,12 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               1408) against the same step through the plain attention
  13. plan     the serve-plan rollout path: the plan-rollout tool at
               Llama-3.1-8B's widths (hidden 4096, 32 query / 8 KV heads,
-              head_dim 128, FFN 14336, llama3 rope), random weights from seed
-              0 with the tool's head gains, the tool's defaults (S=512, 64
+              head_dim 128, FFN 14336, llama3 rope), phase 9's weights (drawn
+              on the card from seed 0) with the tool's head gains, the tool's defaults (S=512, 64
               tokens, budgets 0.003/0.01/0.03, master/int8_g32/int4_g128,
-              `small` nets, 2000 epochs); cut to 8 layers of 32, a 4096-row
+              `small` nets, 2000 epochs); cut to 4 layers of 32, a 4096-row
               vocabulary of 128256 (a step reads one embedding row, no LM
-              head) and one seed of three; with --hybrid: the top budget's
+              head), one seed of three and 2 timing reps of 5; with --hybrid: the top budget's
               served set as a hybrid rollout per scheme (fp32, int8_g32,
               int4_g128), served units attending through 2F
  14. launches kernels 2A, 2C and 2E were launched by phase 13 (counters zeroed
@@ -112,9 +116,9 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               twins >= 0.9999, the device-bytes identity, and resident
               payloads int4_g128 < int8_g32 < fp32 for the same served set
  15. hybrid   the hybrid engine (models/llama_hybrid.py) at Llama-3.1-8B's
-              widths, 8 layers, random weights from seed 0 drawn on the card,
+              widths, 4 layers, random weights from seed 0 drawn on the card,
               fp32 with TF32 off: (a) the hybrid step, `small` nets from seed
-              1, every other KV head of every layer served (32 of 64), fp32
+              1, every other KV head of every layer served (16 of 32), fp32
               and int4_g128, S 2048 and 32768, against llama_decode_step over
               the reconstruction-swapped buffer (served rows rebuilt on the
               card by 2C / 2E), and on an (S+64)-row buffer with garbage past
@@ -151,8 +155,8 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
  20. serving at Llama-3.1-8B's attention widths (hidden 4096, 32 query / 8
               KV heads, head_dim 128, FFN 14336; the experiment's plain RoPE):
               the head-policy study with `small` nets at S=512 and its default
-              scheme, measure_entropy --random_init at S=2048 (both cut to 4
-              layers of 32, vocabulary 512, 200 epochs of 2000), measure_entropy
+              scheme, measure_entropy --random_init at S=2048 (both cut to 1
+              layer of 32, vocabulary 512, 200 epochs of 2000), measure_entropy
               --mla_random_init at its defaults, and extract --synthetic at
               S=2048 into a fresh directory (its files equal phase 4's cache
               byte for byte); each run's seconds and peak device memory
@@ -205,10 +209,10 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               each stage
  23. studies  the shared-basis study at its defaults (the synthetic cache
               at Llama-3.1-8B's KV geometry, layer 16, trunk widths
-              64/128/256/512, baselines tiny/small/medium, 200 epochs of
+              64/128/256/512, baselines tiny/small/medium, 100 epochs of
               2000); the MLA latent study at DeepSeek-V2-Lite's attention
               widths (16 heads, kv_lora_rank 512, rope 64, nope 128, v 128,
-              hidden 2048, FFN 10944; cut to 4 layers of 27, S=2048, 200
+              hidden 2048, FFN 10944; cut to 4 layers of 27, S=2048, 100
               epochs) and serve_plan --latent_json on its units; fit --quick
               --profile_dir on phase 4's cache, its Chrome trace holding 2A's
               kernels; each part's seconds and exact 2A / 2C launches, every
@@ -219,7 +223,7 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               then held to its plain version; the quality delta of two medium
               fits at S=2048; the 512-net aggregate), train_impl_bench (7
               configs, N=40, S=2048, autograd against 2A; 5 and 20 epochs a
-              replicate, 3 replicates), the quantized sustain study (layer 8,
+              replicate, 1 replicate), the quantized sustain study (layer 8,
               N=4, 2048 -> 2304, int4_g128) and the FM / FINER studies on a
               hard-mode cache (32-layer metadata, 8 heads, S=2048, D=128),
               reprice_study on the committed artifacts, the end-metric,
@@ -227,8 +231,8 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               Llama-3.1-8B's widths (2 layers of 32, vocabulary 512, weights
               drawn on the card), prefill_ladder at Llama-3.2-3B's (4 layers
               of 28, bf16, S 2048-32768), the sink figure and plot_study;
-              epochs 200 of 2000 (warm 100 of 1000, QAT 30 of 300, absorb 50
-              of 500); each tool's seconds and exact 2A / 2B / 2C launches,
+              epochs 200 of 2000 (fm_spacing_study 50; warm 100 of 1000, QAT
+              30 of 300, absorb 50 of 500); each tool's seconds and exact 2A / 2B / 2C launches,
               every fit_batch and trajectory fit held at its own shape
  25. mesh     the multi-device paths over a fit mesh (parallel/mesh.py),
               spawned by this script: one NCCL rank a card, and where there
@@ -248,8 +252,19 @@ Phase by phase, each printing its seconds; any failure exits non-zero:
               operands on the card, with the three times; the
               sequence-parallel prefill at
               Llama-3.1-8B's widths (2 of 32 layers, vocabulary 4096, bf16,
-              S=8192) against the single-device prefill; each rank's kernel
-              launches asserted, a failing rank failing the phase
+              S=8192) against the single-device prefill; Megatron tensor
+              parallelism (shard_llama_params): at Llama-3.1-8B's widths
+              (vocabulary 4096; all 32 layers on NCCL ranks, 2 on the Gloo
+              ones) the prefill at S=8192, the decode step at 8192 over each
+              rank's heads of a buffer of 8192 + 16 rows and a 16-token
+              rollout, and at GPT-OSS-20B's (2 of 24 layers, S=2048, an
+              8-token rollout), each against the unsharded call on the same
+              weights, bit for bit in a world of one and within the bf16
+              bars otherwise, every sum over the ranks the same bits on every
+              rank, the times a token beside the unsharded ones; extract
+              --backend jax --mesh tp (one NCCL rank) bit for bit against the
+              unsharded extraction; each rank's kernel launches and
+              collectives asserted, a failing rank failing the phase
 
 Phase 3 also drives the bf16 modes of 2D and 2F (8 medium heads, S 2048 and
 32768 at T=1, T=16 causal at 2048, int4_g128) and 2E (128 `small` nets at
@@ -379,6 +394,9 @@ LIBRARIES = ("siren_decode", "siren_decode_bf16", "siren_train", "siren_attentio
              "siren_attention_act16", "siren_decode_act16", "siren_attention_wgmma", "kv_quant_attention",
              "mla_absorbed_attention")
 HOST_LIBRARY = "synthkv"  # csrc/synthkv.cpp, the synthetic cache generator, built with g++
+# What phases 4-5 (the study) launch: 2A, 2B, 2C and 2E in fp32, 2C's bf16 mode, the host generator. The other
+# libraries go on compiling while the study runs, and phase 3 waits for them.
+STUDY_LIBRARIES = ("siren_train", "siren_decode", "siren_decode_bf16", HOST_LIBRARY)
 
 # H100 SXM data sheet: fp32 outside the tensor cores, bf16 and TF32 on the tensor cores (dense), device memory.
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -395,7 +413,8 @@ MLA_SCALES = (MLA_SCALE, MLA_SCALE * (0.1 * 0.707 * math.log(40) + 1.0) ** 2)
 MLA_SEQ_LENS = (1024, 32768, 300, 0)
 MLA_EDGE_HEADS = (4, 128)  # fewer heads than one 16-head group of the kernel; DeepSeek-V3's 128 (eight groups)
 MLA_SCHEMES = ("int8_g32", "int6_g64", "int4_g64")
-MLA_LADDER = (1024, 4096, 16384, 32768)
+# Of the tool's 1024/4096/16384/32768 (each rung ~25 s): the first is where its legs are held to each other.
+MLA_LADDER = (1024, 32768)
 MLA_LADDER_SCHEMES = ("int8_g32", "int4_g64")
 MLA_TOL = dict(rtol=1e-5, atol=2e-5)  # tests/test_torch_cuda.py: fp32 sums in another order
 # bf16: the kernel rounds each softmax weight relative to the running max
@@ -419,18 +438,19 @@ V2_LITE = dict(  # DeepSeek-V2-Lite config.json, vocabulary cut to 4096
 )
 
 
-# The plan-rollout slice: Llama-3.1-8B (huggingface.co/meta-llama/Llama-3.1-8B config.json), cut to 8 layers
-# (the JAX tool's depth) and a 4096-row vocabulary.
+# The plan-rollout slice: Llama-3.1-8B (huggingface.co/meta-llama/Llama-3.1-8B config.json), cut to 4 layers
+# (the JAX tool's depth is 8; half of it keeps the script inside its time) and a 4096-row vocabulary.
 LLAMA_31_8B = dict(
-    model_type="llama", vocab_size=4096, hidden_size=4096, intermediate_size=14336, num_hidden_layers=8,
+    model_type="llama", vocab_size=4096, hidden_size=4096, intermediate_size=14336, num_hidden_layers=4,
     num_attention_heads=32, num_key_value_heads=8, head_dim=128, hidden_act="silu", rms_norm_eps=1e-5,
     rope_theta=500000.0, max_position_embeddings=131072, attention_bias=False, mlp_bias=False,
     rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
                   "original_max_position_embeddings": 8192},
 )
-PLAN_CUTS = ["layers 8 of 32", "vocabulary 4096 of 128256 (a step reads one embedding row; no LM head)",
-             "seeds 1 of 3 (seed 0)"]
-PLAN_SEQ_LEN, PLAN_NETS = 512, 128  # the tool's S; 2 x 64 units, the most nets a recon leg decodes
+PLAN_REPS = 2  # --timing_reps: 2 back-to-back rollouts a timing sample, of the tool's 5 on the card
+PLAN_CUTS = ["layers 4 of 32", "vocabulary 4096 of 128256 (a step reads one embedding row; no LM head)",
+             "seeds 1 of 3 (seed 0)", f"timing reps {PLAN_REPS} of 5"]
+PLAN_SEQ_LEN, PLAN_NETS = 512, 128  # the tool's S; 2 x 64 units, the most nets a recon leg decodes at its 8 layers
 # (hidden, hidden layers, D) of nets the SIREN kernels take only with zero units added: 2A's wrapper pads them
 # (ops/_launch.py:pad_stack), the decode stack reads the units past the true widths as zeros.
 PADDED_SHAPES = ((96, 1, HEAD_DIM), (64, 0, HEAD_DIM), (64, 1, 3), (72, 2, 18), (32, 14, 16))
@@ -595,8 +615,8 @@ LAW_FIELDS = ("slope", "intercept", "r2", "entropy_slope", "log1mproxy_slope")
 # Phase 20: Llama-3.1-8B's attention widths (huggingface.co/meta-llama/Llama-3.1-8B config.json) in the
 # experiment's own model (plain RoPE: run_head_policy_experiment takes no rope fields; vocabulary 512).
 SERVE_8B = dict(num_heads=32, num_kv_heads=8, head_dim=128, hidden_size=4096, intermediate_size=14336)
-SERVE_8B_LAYERS, SERVE_8B_SEQ, ENTROPY_8B_SEQ = 4, 512, 2048
-SERVE_8B_CUTS = ["layers 4 of 32", "vocabulary 512 of 128256 (the experiment's own model)",
+SERVE_8B_LAYERS, SERVE_8B_SEQ, ENTROPY_8B_SEQ = 1, 512, 2048
+SERVE_8B_CUTS = [f"layers {SERVE_8B_LAYERS} of 32", "vocabulary 512 of 128256 (the experiment's own model)",
                  f"epochs {STUDY_EPOCHS} of 2000"]
 # Phase 21: the Llama families and the HF loaders at GPT-OSS-20B's widths (huggingface.co/openai/gpt-oss-20b
 # config.json: attention sinks, biased projections, alternating 128-row windows starting sliding, YaRN, 32 experts
@@ -627,6 +647,12 @@ MESH_DECODE_NETS, MESH_ATTN_SEQS, MESH_QUANT_SCHEME = 512, (2048, 32768), "int4_
 MESH_REPS, MESH_DECODE_REPS = 11, 3  # timed calls a case (2C's: up to ~0.9 s a call with two Gloo ranks)
 SP_SEQ, SP_LAYERS = 8192, 2
 SP_CUTS = [f"layers {SP_LAYERS} of 32", "vocabulary 4096 of 128256"]
+# Tensor parallelism in phase 25: Llama-3.1-8B's widths at all 32 layers on NCCL ranks (2 on the Gloo ranks that
+# share a card, whose sums go through host memory), the prefill at SP_SEQ, the step at SP_SEQ over a buffer of
+# SP_SEQ + TP_ROLLOUT rows, a TP_ROLLOUT-token rollout over the prefill's last rows; GPT-OSS-20B's widths as phase
+# 21 cuts them at FAMILY_SEQ with a GPT_OSS_ROLLOUT-token rollout. A world of one is held to the unsharded calls bit
+# for bit; two ranks to K/V within FAMILY_BF16_REL and cosine 0.999, h within cosine TP_H_COSINE.
+TP_ROLLOUT, GPT_OSS_ROLLOUT, TP_NCCL_LAYERS, TP_H_COSINE = 16, 8, 32, 0.9999
 # The stress axes of experiments head_policy at its hermetic defaults (8 layers x 4 KV heads, S=512, 64 `small`
 # nets, its default scheme), 200 epochs of 2000.
 HP_AXES = ("--hp_experts 8", "--hp_experts 8 --hp_moe_style gpt_oss", "--hp_sinks", "--hp_window 128 --hp_nope",
@@ -634,6 +660,7 @@ HP_AXES = ("--hp_experts 8", "--hp_experts 8 --hp_moe_style gpt_oss", "--hp_sink
 
 
 PHASE_SECONDS = {}  # each phase's seconds, in the order they ran
+STARTED = time.perf_counter()
 
 
 @contextlib.contextmanager
@@ -643,6 +670,10 @@ def phase(name: str):
     yield
     PHASE_SECONDS[name] = time.perf_counter() - t0
     print(f"[{name}] done in {PHASE_SECONDS[name]:.2f}s", flush=True)
+    # Also on standard error, with the seconds since the script started: the end of a run that was stopped shows
+    # how far it got.
+    print(f"[{name}] done in {PHASE_SECONDS[name]:.2f}s, {time.perf_counter() - STARTED:.1f}s since the start",
+          file=sys.stderr, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1079,8 +1110,8 @@ def check_mla_moe(dev) -> None:
           f"experts, top-{config.num_experts_per_tok}, {config.n_shared_experts} shared, width "
           f"{config.moe_intermediate_size}), bf16, S=4096, position 4096")
     t0 = time.perf_counter()
-    params = mla.init_random_mla(config, seed=0, dtype=torch.bfloat16, device=dev)
-    print(f"  random weights from seed 0: {time.perf_counter() - t0:.1f}s")
+    params = v2_lite_params(draw_v2_lite(dev, config, seed=0), config)  # init_random_mla's numpy stream: ~20 s
+    print(f"  random weights drawn on the card from seed 0: {time.perf_counter() - t0:.1f}s")
     gen = torch.Generator().manual_seed(4096)
     lat = (torch.randn(2, 4096, config.latent_dim, generator=gen) * 0.5).to(dev, torch.bfloat16)
     before = ma.launches["mla_absorbed_attention"]
@@ -1876,8 +1907,8 @@ def write_checkpoint(directory: Path, config: dict, tensors: dict, shards: int =
 
 # Phase 22, the text-in path: Llama-3.1-8B's widths (LLAMA_31_8B, huggingface.co/meta-llama/Llama-3.1-8B config.json)
 # written as an HF checkpoint in bf16 beside the committed Llama-3-format tokenizer (tests/data/tokenizer_llama3).
-TEXT_CONFIG = {**LLAMA_31_8B, "architectures": ["LlamaForCausalLM"], "torch_dtype": "bfloat16", "bos_token_id": 0,
-               "eos_token_id": 1, "tie_word_embeddings": False}
+TEXT_CONFIG = {**LLAMA_31_8B, "num_hidden_layers": 8, "architectures": ["LlamaForCausalLM"],
+               "torch_dtype": "bfloat16", "bos_token_id": 0, "eos_token_id": 1, "tie_word_embeddings": False}
 TEXT_CUTS = ["layers 8 of 32", "vocabulary 4096 of 128256 (the fixture tokenizer's)", f"epochs {STUDY_EPOCHS} of 2000"]
 TEXT_TOKENIZER = Path("tests") / "data" / "tokenizer_llama3"
 TEXT_FILES = ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json")
@@ -1887,12 +1918,13 @@ TEXT_GROUPS = 7  # the sweep's architecture groups, one fit_batch each
 TEXT_TIMING = 1 + 5 * 200  # 2B launches of one time_siren_forward_ms on the card: a warm-up, 5 samples of 200
 
 
-def draw_llama_8b(dev, seed: int = 2) -> dict:
-    """TEXT_CONFIG's tensors under their HF names and layouts (``LlamaForCausalLM.state_dict()``), bf16, drawn on the
-    card from ``torch.Generator(seed)``: projections N(0, 0.02), norms 1 + N(0, 0.1)."""
+def draw_llama_8b(dev, seed: int = 2, config: dict | None = None) -> dict:
+    """``config``'s tensors (TEXT_CONFIG's by default) under their HF names and layouts
+    (``LlamaForCausalLM.state_dict()``), bf16, drawn on the card from ``torch.Generator(seed)``: projections
+    N(0, 0.02), norms 1 + N(0, 0.1)."""
     import torch
 
-    c = TEXT_CONFIG
+    c = TEXT_CONFIG if config is None else config
     g = torch.Generator(device=dev).manual_seed(seed)
     h, ff = c["hidden_size"], c["intermediate_size"]
     nq, nkv = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
@@ -2875,18 +2907,19 @@ def check_plan(payload: dict) -> None:
 
 
 def hybrid_model(dev):
-    """Phases 9 and 15's model: Llama-3.1-8B's widths cut to 8 layers (LLAMA_31_8B), init_random_llama's weights
-    from seed 0; `small` K and V nets for its 64 units with their denormalization stats, from seed 1; every other
-    KV head of every layer served. Returns (config, params, (k_nets, v_nets, stats), served)."""
+    """Phases 9, 13 and 15's model: Llama-3.1-8B's widths cut to 4 layers (LLAMA_31_8B), fp32 weights drawn on
+    the card from seed 0 (``draw_study_llama``: init_random_llama's recipe, whose numpy stream takes ~1 min at these
+    widths); `small` K and V nets for its 32 units with their denormalization stats, from seed 1; every other KV
+    head of every layer served. Returns (config, params, (k_nets, v_nets, stats), served)."""
     import torch
 
-    from nerf_attention_tpu_torch.models.llama import LlamaConfig, init_random_llama
+    from nerf_attention_tpu_torch.models.llama import LlamaConfig
     from nerf_attention_tpu_torch.tools.measure_attention_decode import attention_inputs as inputs_of
     from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME
 
     config = LlamaConfig.from_hf_dict(LLAMA_31_8B)
     n_kv, n_l = config.num_key_value_heads, config.num_hidden_layers
-    params = init_random_llama(config, 0, device=dev)
+    params = draw_study_llama(config, 0, dev)
     k_nets, v_nets, stats, _ = inputs_of(CONFIGS_BY_NAME["small"], n_l * n_kv, 1, config.head_dim,
                                          torch.Generator().manual_seed(1), dev)
     served = np.zeros((n_l, n_kv), bool)
@@ -3051,7 +3084,8 @@ SHARED_WIDTHS, SHARED_CONFIGS = (64, 128, 256, 512), ("tiny", "small", "medium")
 LATENT_KW = dict(seq_len=SEQ_LEN, num_layers=4, num_heads=16, kv_lora_rank=512, qk_nope_head_dim=128,
                  qk_rope_head_dim=64, v_head_dim=128, hidden_size=2048, intermediate_size=10944)
 LATENT_CONFIGS = ("tiny", "small", "medium")
-LATENT_CUTS = ["layers 4 of 27 (all dense)", f"epochs {STUDY_EPOCHS} of 2000", "vocabulary 512 (the tool's)"]
+STUDIES_EPOCHS = 100  # phase 23's shared-basis and MLA latent studies: 100 of 2000 (their fits are the host's)
+LATENT_CUTS = ["layers 4 of 27 (all dense)", f"epochs {STUDIES_EPOCHS} of 2000", "vocabulary 512 (the tool's)"]
 PROFILE_EPOCHS = 20  # fit --quick --profile_dir on phase 4's cache: 2 groups of this many 2A steps
 TRAIN_KERNELS = ("first_layer_kernel", "gemm_3xtf32", "finish_kernel")  # csrc/siren_train.cu's launches a step
 
@@ -3419,10 +3453,10 @@ def studies_on_the_card(dev, tmp: Path, study_kv: Path, check_train) -> tuple[di
     n_ind = len(SHARED_CONFIGS) * 2
     print(f"  shared_basis_study: synthetic cache {NUM_LAYERS} layers x {NUM_HEADS} heads, S={SEQ_LEN}, D={HEAD_DIM}, "
           f"layer 16, widths {'/'.join(map(str, SHARED_WIDTHS))}, configs {'/'.join(SHARED_CONFIGS)}; cut: epochs "
-          f"{STUDY_EPOCHS} of 2000")
+          f"{STUDIES_EPOCHS} of 2000")
     shared = run("shared_basis_study", lambda: shared_basis_study.main(
-        ["--output_dir", str(tmp / "shared_basis"), "--epochs", str(STUDY_EPOCHS)]),
-        {"siren_train_grads": n_ind * STUDY_EPOCHS, "siren_decode_batch": n_ind})
+        ["--output_dir", str(tmp / "shared_basis"), "--epochs", str(STUDIES_EPOCHS)]),
+        {"siren_train_grads": n_ind * STUDIES_EPOCHS, "siren_decode_batch": n_ind})
     assert [r["config"] for r in shared["independent"]] == list(SHARED_CONFIGS) * 2
     assert len(shared["shared"]) == 2 * len(SHARED_WIDTHS) * 2
     for r in shared["independent"] + shared["shared"]:
@@ -3437,8 +3471,8 @@ def studies_on_the_card(dev, tmp: Path, study_kv: Path, check_train) -> tuple[di
     print(f"  mla_latent_study: DeepSeek-V2-Lite attention widths {LATENT_KW}; cuts: {'; '.join(LATENT_CUTS)}")
     n_fits = 3 * len(LATENT_CONFIGS)
     latent = run("mla_latent_study", lambda: mla_latent_study.run_study(
-        tmp / "mla_latent", epochs=STUDY_EPOCHS, configs=LATENT_CONFIGS, **LATENT_KW),
-        {"siren_train_grads": n_fits * STUDY_EPOCHS, "siren_decode_batch": 2 * n_fits})
+        tmp / "mla_latent", epochs=STUDIES_EPOCHS, configs=LATENT_CONFIGS, **LATENT_KW),
+        {"siren_train_grads": n_fits * STUDIES_EPOCHS, "siren_decode_batch": 2 * n_fits})
     w = LATENT_KW
     assert latent["model"]["latent_dim"] == w["kv_lora_rank"] + w["qk_rope_head_dim"]  # 576 at V2-Lite's widths
     assert latent["model"]["materialized_per_token"] == w["num_heads"] * (
@@ -3476,7 +3510,8 @@ TOOL_EPOCHS = STUDY_EPOCHS  # 200 of 2000 wherever a tool fits
 TOOL_WARM = 100  # the sustain study's warm epochs: 100 of 1000
 TOOL_QAT = 30  # its QAT epochs: 30 of 300
 TOOL_ABSORB = 50  # the lifecycle study's absorb epochs: 50 of 500
-TRAIN_BENCH = dict(n1=5, samples=3)  # train_impl_bench: 5 and 20 epochs a replicate, 3 replicates (of 200 and 5)
+FM_SPACING_EPOCHS = 50  # fm_spacing_study's: 50 of 2000 (its learned-spacing fits step through autograd)
+TRAIN_BENCH = dict(n1=5, samples=1)  # train_impl_bench: 5 and 20 epochs a replicate, 1 replicate (of 200 and 5)
 DECODE_SAMPLES = 5  # measure_decode's default replicates; one is 200 launches (utils/timing.time_siren_forward_ms)
 SUSTAIN_LEN = 4096  # the incremental study's cache, of which the study reads 2048 + 256 rows
 HARD_LAYERS = SWEEP_LAYERS  # the FM studies' sweep layers (layer 8, FINER's, among them)
@@ -3738,13 +3773,14 @@ def root_tools_on_the_card(dev, tmp: Path, check_train, plan_json: Path) -> tupl
     # The FM and FINER studies on the hard cache: 5 sweep layers x 4 heads (N=20) each of K and V; FINER on layer 8's
     # first 4 value heads.
     print(f"  fm_siren_study, fm_spacing_study, finer_study: the hard cache ({NUM_LAYERS}-layer metadata, {NUM_HEADS} "
-          f"KV heads, S={SEQ_LEN}, D={HEAD_DIM}), medium nets; cut: epochs {e} of 2000")
+          f"KV heads, S={SEQ_LEN}, D={HEAD_DIM}), medium nets; cut: epochs {e} of 2000 ({FM_SPACING_EPOCHS} for "
+          "fm_spacing_study)")
     fm = run("fm_siren_study", lambda: fm_siren_study.main(
         ["--kv_dir", str(hard), "--out", str(tmp / "fm_siren.json"), "--epochs", str(e)]),
         {"siren_train_grads": 2 * 4 * e, "siren_decode_batch": 2 * 4})
     sp = run("fm_spacing_study", lambda: fm_spacing_study.main(
-        ["--kv_dir", str(hard), "--out", str(tmp / "fm_spacing.json"), "--epochs", str(e)]),
-        {"siren_train_grads": 2 * 3 * e, "siren_decode_batch": 2 * 3})
+        ["--kv_dir", str(hard), "--out", str(tmp / "fm_spacing.json"), "--epochs", str(FM_SPACING_EPOCHS)]),
+        {"siren_train_grads": 2 * 3 * FM_SPACING_EPOCHS, "siren_decode_batch": 2 * 3})
     fi = run("finer_study", lambda: finer_study.main(
         ["--kv_dir", str(hard), "--out", str(tmp / "finer.json"), "--epochs", str(e)]),
         {"siren_train_grads": 2 * e, "siren_decode_batch": 2})
@@ -3910,6 +3946,143 @@ def sweep_batches():
         fit_cli.fit_batch = inner
 
 
+def same_on_every_rank(x, mesh) -> bool:
+    """Whether every rank of the mesh holds ``x`` bit for bit as rank 0 does."""
+    import torch
+
+    from nerf_attention_tpu_torch.parallel.mesh import gather_rows
+
+    parts = gather_rows(x.reshape(1, -1), mesh)
+    return all(torch.equal(parts[0], part) for part in parts)
+
+
+def tp_case(mesh, config, params, seq: int, steps: int, seed: int, wall_ms, timed) -> dict:
+    """One Llama configuration under tensor parallelism on this rank: the prefill of ``seq`` tokens, the decode step
+    at ``seq`` over the rank's heads of a buffer of ``seq + steps`` rows holding the prefill, and a ``steps``-token
+    rollout over the prefill's last ``steps`` rows, from the rank's shard of the buffers; each first call with every
+    sum checked to come out the same bits on every rank, its collectives counted, then timed (the prefill and the
+    rollout once more, the step as ``wall_ms`` times it; each call's ms over its tokens). Rank 0 runs the
+    unsharded calls on the same weights and inputs alone on its card and holds the TP outputs to them: bit for bit in
+    a world of one, else K/V within FAMILY_BF16_REL of the largest |K|, |V| and cosine 0.999 and h within cosine
+    TP_H_COSINE; and, at SP_LAYERS layers, the rollout's rows to the prefill's within the K/V bars."""
+    import torch
+
+    from nerf_attention_tpu_torch.models import llama
+    from nerf_attention_tpu_torch.parallel import mesh as pm
+
+    world, lead = mesh.size(), mesh.get_local_rank() == 0
+    ids = np.random.default_rng(seed).integers(0, config.vocab_size, seq + 1)
+    start = seq - steps
+    sharded = llama.shard_llama_params(params, mesh, config=config)
+    checks, inner = [], llama.all_reduce_sum
+
+    def checked(x, m):
+        out = inner(x, m)
+        checks.append(same_on_every_rank(out, mesh))
+        return out
+
+    def run_tp():
+        """The prefill's K/V, the buffers holding them, the step's and the rollout's outputs, under TP."""
+        keys, values = llama.llama_prefill_kv(config, sharded, ids[:seq])
+        buffers = [torch.cat([x, x.new_zeros(*x.shape[:2], steps, x.shape[3])], dim=2) for x in (keys, values)]
+        shards = [llama.shard_kv_heads(b, sharded["tp"]) for b in buffers]
+        step = llama.llama_decode_step(config, sharded, int(ids[seq]), seq, *shards)
+        rows = [torch.where(torch.arange(seq + steps, device=b.device)[:, None] < start, b, 0) for b in buffers]
+        rollout = llama.llama_decode_rollout(config, sharded, ids[start:seq], start,
+                                             *[llama.shard_kv_heads(r, sharded["tp"]) for r in rows])
+        return (keys, values), buffers, step, rollout
+
+    before = dict(pm.collectives)
+    llama.all_reduce_sum = checked
+    try:
+        (keys, values), buffers, step, rollout = run_tp()
+        same = all(checks) and same_on_every_rank(step[0], mesh) and same_on_every_rank(rollout[0], mesh)
+    finally:
+        llama.all_reduce_sum = inner
+    collectives = {k: pm.collectives[k] - before.get(k, 0) for k in ("all_reduce_sum", "gather_rows")}
+    collectives["gather_rows"] -= len(checks) + 2  # the checks' own gathers
+    out = {"same_bits": same, "collectives": collectives, "reduces_checked": len(checks)}
+    out["ms"] = {"prefill": timed(lambda: llama.llama_prefill_kv(config, sharded, ids[:seq]))[1] / seq}
+    shards = [llama.shard_kv_heads(b, sharded["tp"]) for b in buffers]  # read only (in a world of one, `buffers`)
+    out["ms"]["step"] = wall_ms(lambda: llama.llama_decode_step(config, sharded, int(ids[seq]), seq, *shards), 5)
+    written = [llama.shard_kv_heads(b.clone(), sharded["tp"]) for b in buffers]  # each call rewrites the same rows
+    out["ms"]["rollout"] = timed(lambda: llama.llama_decode_rollout(config, sharded, ids[start:seq], start,
+                                                                    *written))[1] / steps
+    del shards, written
+    if not lead:
+        return out
+
+    # ---- rank 0: the unsharded calls on the same weights and inputs, then the comparisons ----
+    want_kv = llama.llama_prefill_kv(config, params, ids[:seq])
+    want_step = llama.llama_decode_step(config, params, int(ids[seq]), seq, *buffers)
+    rows = [torch.where(torch.arange(seq + steps, device=b.device)[:, None] < start, b, 0) for b in buffers]
+    want_roll = llama.llama_decode_rollout(config, params, ids[start:seq], start, *[r.clone() for r in rows])
+    out["unsharded_ms"] = {
+        "prefill": timed(lambda: llama.llama_prefill_kv(config, params, ids[:seq]))[1] / seq,
+        "step": wall_ms(lambda: llama.llama_decode_step(config, params, int(ids[seq]), seq, *buffers), 5),
+        "rollout": timed(lambda: llama.llama_decode_rollout(config, params, ids[start:seq], start, *rows))[1]
+        / steps}
+    pairs = {"keys": (keys, want_kv[0]), "values": (values, want_kv[1]), "step h": (step[0], want_step[0]),
+             "step k_new": (step[1][0], want_step[1][0]), "step v_new": (step[1][1], want_step[1][1]),
+             "step entropy": (step[2], want_step[2]), "rollout h": (rollout[0], want_roll[0]),
+             "rollout keys": (rollout[1][0], want_roll[1][0]), "rollout values": (rollout[1][1], want_roll[1][1]),
+             "rollout entropy": (rollout[3], want_roll[3])}
+    out["exact"] = {name: bool(torch.equal(g, w)) for name, (g, w) in pairs.items()}
+    out["max_abs_err"] = max((g.float() - w.float()).abs().max().item() for g, w in pairs.values())
+    if world == 1:
+        assert all(out["exact"].values()), ("a world of one differs from the unsharded calls", out["exact"])
+    else:
+        for name in ("keys", "values", "step k_new", "step v_new"):
+            g, w = pairs[name]
+            share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+            out[f"{name} share"], out[f"{name} cosine"] = share, cosine(g, w)
+            assert share <= FAMILY_BF16_REL and out[f"{name} cosine"] >= 0.999, (name, share, out[f"{name} cosine"])
+        for name in ("step h", "rollout h"):
+            out[f"{name} cosine"] = cosine(*pairs[name])
+            assert out[f"{name} cosine"] >= TP_H_COSINE, (name, out[f"{name} cosine"])
+    # The rollout refills the prefill's last rows: within the K/V bars at SP_LAYERS layers, where those bars were set
+    # (phase 21); deeper, the step's and the prefill's bf16 roundings compound layer on layer, and the gap is reported.
+    for i, x in enumerate((keys, values)):
+        g, w = rollout[1][i][:, :, start:seq], x[:, :, start:seq]
+        share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        out[f"refill {i} share"], out[f"refill {i} cosine"] = share, cosine(g, w)
+        if config.num_hidden_layers <= SP_LAYERS:
+            assert share <= FAMILY_BF16_REL and out[f"refill {i} cosine"] >= 0.999, ("refill", i, share)
+    return out
+
+
+def tp_rank_checks(mesh, dev, wall_ms, timed, counts) -> dict:
+    """Phase 25's tensor-parallel cases on this rank (``tp_case``): Llama-3.1-8B's widths (all 32 layers on NCCL
+    ranks, SP_LAYERS on Gloo ones) and GPT-OSS-20B's (phase 21's cut), bf16, weights drawn on the card; with this
+    rank's kernel launches over them (none: the TP forward runs plain matmuls)."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_attention_tpu_torch.models import llama
+
+    layers = TP_NCCL_LAYERS if dist.get_backend(mesh.get_group()) == "nccl" else SP_LAYERS
+    before, out = counts(), {}
+    config = llama.LlamaConfig.from_hf_dict({**LLAMA_31_8B, "num_hidden_layers": layers})
+    params = draw_sp_params(config, dev, seed=43)
+    out["llama"] = tp_case(mesh, config, params, SP_SEQ, TP_ROLLOUT, 44, wall_ms, timed)
+    out["llama"]["layers"] = layers
+    del params
+    torch.cuda.empty_cache()
+    config = llama.LlamaConfig.from_hf_dict(GPT_OSS_20B)
+    t = draw_gpt_oss(dev, seed=45)
+    params = {"embed": t["model.embed_tokens.weight"],
+              "layers": [{k: v.contiguous() for k, v in gpt_oss_leaves(t, i).items()}
+                         for i in range(config.num_hidden_layers)]}
+    del t
+    out["gpt_oss"] = tp_case(mesh, config, params, FAMILY_SEQ, GPT_OSS_ROLLOUT, 46, wall_ms, timed)
+    out["gpt_oss"]["layers"] = config.num_hidden_layers
+    del params
+    torch.cuda.empty_cache()
+    now = counts()
+    out["launches"] = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    return out
+
+
 def mesh_rank_checks(mesh, kv_dir: str, out_dir: str) -> dict:
     """Phase 25 on one rank of a fit mesh: the sweep through ``fit_kv_cache(mesh=)``, kernels 2C-2F sharded and
     the SP prefill, each against the unsharded kernel (or prefill) that rank 0 runs alone on its card; every
@@ -4065,10 +4238,21 @@ def mesh_rank_checks(mesh, kv_dir: str, out_dir: str) -> dict:
                          "shape": tuple(g.shape)}
             assert g.shape == (SP_LAYERS, config.num_key_value_heads, SP_SEQ, config.head_dim), g.shape
             assert share <= FAMILY_BF16_REL and cos >= 0.999, ("sp prefill", which, share, cos)
+    del params, got
+    torch.cuda.empty_cache()
+
+    # ---- Megatron tensor parallelism of the Llama ----
+    t0 = time.perf_counter()
+    tp = tp_rank_checks(mesh, dev, wall_ms, timed, counts)
+    tp_seconds = time.perf_counter() - t0
     per_rank = [None] * world
     dist.all_gather_object(per_rank, {"rank": rank, "sweep": sweep["launches"],
-                                      "cases": [r["launches"] for r in results]})
-    return {"backend": backend, "world": world, "sweep": sweep, "cases": results, "sp": sp, "per_rank": per_rank}
+                                      "cases": [r["launches"] for r in results],
+                                      "tp": {"launches": tp["launches"], "seconds": tp_seconds,
+                                             **{name: {k: tp[name][k] for k in ("same_bits", "collectives", "ms")}
+                                                for name in ("llama", "gpt_oss")}}})
+    return {"backend": backend, "world": world, "sweep": sweep, "cases": results, "sp": sp, "tp": tp,
+            "per_rank": per_rank}
 
 
 def mesh_on_the_card(dev, tmp: Path, kv_dir: Path) -> dict:
@@ -4148,7 +4332,73 @@ def mesh_on_the_card(dev, tmp: Path, kv_dir: Path) -> dict:
                 world_totals.update({k: v for k, v in got.items() if not k.endswith("(wgmma)")})
         print(f"  {tag} each rank's launches asserted; over its ranks: {dict(sorted(world_totals.items()))}")
         totals.update(world_totals)
+        tp_on_the_card(tag, res)
+    tp_extraction_on_the_card(dev, tmp)
     return dict(totals)
+
+
+def tp_on_the_card(tag: str, res: dict) -> None:
+    """Phase 25's tensor-parallel results of one world (``tp_rank_checks``), printed beside the card's name and
+    power limit; each rank's sums the same bits on every rank, its collectives and (no) kernel launches asserted."""
+    card = nvidia_smi_line()
+    labels = {"llama": ("Llama-3.1-8B widths", SP_SEQ, TP_ROLLOUT, 2),
+              "gpt_oss": ("GPT-OSS-20B widths", FAMILY_SEQ, GPT_OSS_ROLLOUT, 1)}
+    for name, (label, seq, steps, sums) in labels.items():
+        r = res["tp"][name]
+        exact = all(r["exact"].values())
+        ms, single = r["ms"], r["unsharded_ms"]
+        bars = "; " + ", ".join(f"{k} {v:.6f}" for k, v in r.items() if k.endswith(("share", "cosine")))
+        print(f"  {tag} TP {label} ({r['layers']} layers, vocabulary 4096, bf16; {card}): ms a token, TP against "
+              f"unsharded: prefill S={seq} {ms['prefill']:.5f} / {single['prefill']:.5f}, decode step at {seq} "
+              f"{ms['step']:.3f} / {single['step']:.3f}, {steps}-token rollout {ms['rollout']:.3f} / "
+              f"{single['rollout']:.3f}; {'bit for bit' if exact else 'not bit for bit'} against the unsharded calls "
+              f"(max_abs_err {r['max_abs_err']:.3e}){bars}; {r['reduces_checked']} sums, each the same bits on every "
+              "rank")
+        for rank in res["per_rank"]:
+            got = rank["tp"][name]
+            want = {"all_reduce_sum": r["layers"] * sums * (2 + steps), "gather_rows": 10}
+            assert got["same_bits"] and got["collectives"] == want, (tag, rank["rank"], name, got, want)
+    for rank in res["per_rank"]:
+        assert rank["tp"]["launches"] == {}, (tag, rank["rank"], rank["tp"]["launches"])
+        print(f"  {tag} rank {rank['rank']}: TP in {rank['tp']['seconds']:.1f}s, no kernel launch; collectives "
+              + "; ".join(f"{name} {rank['tp'][name]['collectives']}" for name in labels))
+
+
+def tp_extraction_on_the_card(dev, tmp: Path) -> None:
+    """``extract --backend jax --mesh tp`` with one NCCL rank (a visible card) over a checkpoint at
+    Llama-3.1-8B's widths (SP_LAYERS layers, bf16, the fixture tokenizer): every layer file and the metadata bit for
+    bit the unsharded extraction's."""
+    import shutil
+
+    import torch
+
+    from nerf_attention_tpu_torch import extract
+    from nerf_attention_tpu_torch.io import kvstore
+
+    repo = Path(__file__).resolve().parent
+    ckpt = tmp / "llama_8b_tp"
+    config = {**TEXT_CONFIG, "num_hidden_layers": SP_LAYERS}
+    write_checkpoint(ckpt, config, draw_llama_8b(dev, seed=47, config=config))
+    for name in TEXT_FILES:
+        shutil.copy(repo / TEXT_TOKENIZER / name, ckpt / name)
+    torch.cuda.empty_cache()
+    argv = ["--backend", "jax", "--model", str(ckpt), "--seq_len", str(TEXT_SEQ)]
+    single, tp = tmp / "tp_extract_single", tmp / "tp_extract_tp"
+    seconds = {}
+    for run, extra in (("unsharded", ["--output_dir", str(single)]), ("--mesh tp", ["--output_dir", str(tp),
+                                                                                    "--mesh", "tp"])):
+        t0 = time.perf_counter()
+        extract.main([*argv, *extra])
+        seconds[run] = time.perf_counter() - t0
+    assert sorted(p.name for p in tp.iterdir()) == sorted(p.name for p in single.iterdir())
+    meta = kvstore.load_metadata(single)
+    assert kvstore.load_metadata(tp).to_dict() == meta.to_dict()
+    for i in range(meta.num_layers):
+        assert all(np.array_equal(a, b) for a, b in zip(kvstore.load_layer(tp, i), kvstore.load_layer(single, i))), i
+    print(f"  extract --backend jax --mesh tp (one NCCL rank, {SP_LAYERS} layers at Llama-3.1-8B widths, "
+          f"{meta.seq_len} ids): every layer file bit for bit the unsharded extraction's; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    shutil.rmtree(ckpt)
 
 
 def main() -> int:
@@ -4192,25 +4442,29 @@ def main() -> int:
     pin_fp32_matmul()
     dev = torch.device("cuda")
 
-    # ---- 2. build ----
-    with phase("2 build"):
-        def build(name):
-            t0 = time.perf_counter()
-            if name == HOST_LIBRARY:
-                _build.load_host_library(name)
-            else:
-                _build.load_library(name)
-            return time.perf_counter() - t0
+    # ---- 2. build: every library started at once; the study's awaited here, the others before phase 3 ----
+    def build(name):
+        t0 = time.perf_counter()
+        if name == HOST_LIBRARY:
+            _build.load_host_library(name)
+        else:
+            _build.load_library(name)
+        return time.perf_counter() - t0
 
-        names = (*LIBRARIES, HOST_LIBRARY)
-        with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-            took = dict(zip(names, pool.map(build, names)))
+    def built(names):
         for name in names:
+            took = builds[name].result()
             print(f"  {name}{' (g++, the host generator)' if name == HOST_LIBRARY else ''}: built and loaded in "
-                  f"{took[name]:.1f}s")
+                  f"{took:.1f}s")
             for line in _build.build_logs.get(name, "").splitlines():
                 if "registers" in line or "spill" in line or "stack frame" in line:
                     print(f"    ptxas: {line.strip()}")
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(LIBRARIES) + 1)
+    builds = {name: pool.submit(build, name) for name in (*LIBRARIES, HOST_LIBRARY)}
+    pool.shutdown(wait=False)
+    with phase("2 build"):
+        built(STUDY_LIBRARIES)
 
     def stack_for(config, n, seed):
         gen = torch.Generator().manual_seed(seed)
@@ -4222,8 +4476,66 @@ def main() -> int:
 
     report = {}
 
+    # The work directory of phases 4-25. Phases 4 and 5 run first, while the attention, MLA and KV-cache kernels
+    # still compile; counts and snapshots are their own, so phase 3 after them changes none of theirs.
+    workdir = contextlib.ExitStack()
+    tmp = Path(workdir.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_")))
+    study_root = tmp / "study"
+    for counts in (siren_cuda.launches, siren_cuda.bf16_launches, siren_cuda.wgmma_launches,
+                   siren_train_cuda.launches):
+        for key in counts:
+            counts[key] = 0
+    plotting.not_drawn.clear()
+
+    # ---- 4. the study, every stage on the card ----
+    qat_calls, recon_calls, quant_calls, cache_calls = [], [], [], []
+    attn_calls, attn_recon, hp_calls, hp_recon = [], [], [], []
+    with phase("4 study"), counted(qat, "qat_finetune_checkpoints", qat_calls), \
+            counted(quantized_params, "_reconstruct", recon_calls), \
+            counted(quantized_params, "run_quantization_experiment", quant_calls), \
+            counted(synthetic, "generate_synthetic_kv", cache_calls), \
+            counted(attention_error, "run_attention_error_experiment", attn_calls), \
+            counted(attention_error, "_reconstruct", attn_recon), \
+            counted(head_policy, "run_head_policy_experiment", hp_calls), \
+            counted(head_policy, "_reconstruct", hp_recon):
+        print(f"  python -m nerf_attention_tpu_torch.study --root <tmp> --epochs {STUDY_EPOCHS} --compress "
+              f"{STUDY_COMPRESS}: the synthetic reference recipe, {NUM_LAYERS}-layer metadata, {NUM_HEADS} KV "
+              f"heads, S={SEQ_LEN}, D={HEAD_DIM}; the 280-fit sweep, the scaling ladder "
+              f"{'/'.join(map(str, SCALING_LADDER))}, {len(PROMPTS)} prompts, the SVD grid, the {NUM_LAYERS}-layer "
+              f"profile, the {NUM_LAYERS * NUM_HEADS * 2}-net aggregate decode, quantized storage ({N_FITS} "
+              f"checkpoints x {len(QUANT_SCHEMES)} schemes, {QAT_EPOCHS} QAT epochs at N={N_FITS}), "
+              f"compress at {STUDY_COMPRESS}; --attention: layers {'/'.join(map(str, ATTN_LAYERS))}, "
+              f"{ATTN_HEADS} heads' K and V, medium nets, {ATTN_QUERIES} queries, gains "
+              f"{'/'.join(f'{g:g}' for g in ATTN_GAINS)}; --serving: the hermetic {HP_LAYERS}-layer dense Llama "
+              f"({HP_LAYERS * HP_KV} units, S=512, `small` nets, payloads {'/'.join(HP_PAYLOADS)}) and its plans")
+        print(f"  cuts: {'; '.join(STUDY_CUTS)}")
+        t0 = time.perf_counter()
+        stage_seconds = study.main(["--root", str(study_root), "--epochs", str(STUDY_EPOCHS),
+                                    "--compress", STUDY_COMPRESS, "--attention", "--serving"])
+        print(f"  the study: {time.perf_counter() - t0:.1f}s")
+    study_launches = {**siren_cuda.launches, **siren_train_cuda.launches,
+                      "siren_decode_batch (bf16)": siren_cuda.bf16_launches["siren_decode_batch"]}
+    # Every bf16 2C launch of the study (the aggregate decode's) went through csrc/siren_decode_bf16.cu.
+    assert siren_cuda.wgmma_launches["siren_decode_batch"] == study_launches["siren_decode_batch (bf16)"], (
+        siren_cuda.wgmma_launches, study_launches)
+
+    # ---- 5. what the study wrote ----
+    with phase("5 study checks"):
+        check_study(study_root, stage_seconds, tmp)
+        check_pt_checkpoints(study_root / "fits")
+        print(f"  the host generator, seconds per cache (S): "
+              + ", ".join(f"{sec:.2f} ({seq_len})" for sec, _, _, seq_len in cache_calls)
+              + f"; {sum(c[0] for c in cache_calls):.1f}s for {len(cache_calls)} caches")
+        print(f"  quantize experiment: {quant_calls[0][0]:.1f}s; QAT at N={N_FITS}: "
+              + ", ".join(f"{sec:.2f}s for {a} steps ({1e3 * sec / a:.3f} ms a step)" for sec, a, _, _ in qat_calls)
+              + f" (the experiment's, then compress's); compress stage {stage_seconds['compress']:.1f}s")
+
+    with phase("2 build, the rest"):
+        built([name for name in builds if name not in STUDY_LIBRARIES])
+
     # ---- 3. kernels against their plain versions ----
     with phase("3 kernels"):
+        started = time.perf_counter()
         medium = CONFIGS_BY_NAME["medium"]
         decode_err = {"siren_decode": 0.0, "siren_decode_batch": 0.0}
         for n, wrapper in ((1, "siren_decode"), (N_FITS, "siren_decode_batch")):
@@ -4369,77 +4681,36 @@ def main() -> int:
         print(f"  fit_batch cuda vs cpu: max |cosine_mean gap| = {cos_gap:.2e} (limit 2e-3)")
         assert cos_gap <= 2e-3, cos_gap
 
-        fm_depth_witness(dev)
-        report["siren_decode_batch"]["max_abs_err"] = max(report["siren_decode_batch"]["max_abs_err"],
-                                                          check_wide_nets(dev, median_ms))
-        tile_costs(dev, stack_for)
+        part_s = {"2A-2D at the main shapes": time.perf_counter() - started}
 
-        report.update(check_attention_kernels(dev, median_ms))
+        def part(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            part_s[name] = time.perf_counter() - t0
+            return out
+
+        part("fm depth", fm_depth_witness, dev)
+        report["siren_decode_batch"]["max_abs_err"] = max(report["siren_decode_batch"]["max_abs_err"],
+                                                          part("wide nets", check_wide_nets, dev, median_ms))
+        part("tile costs", tile_costs, dev, stack_for)
+
+        report.update(part("attention", check_attention_kernels, dev, median_ms))
         report["siren_attention_decode_fused"]["max_abs_err"] = max(
             report["siren_attention_decode_fused"]["max_abs_err"], attn_padded_err)
-        report.update(check_mla_kernels(dev, median_ms))
-        report["siren_decode_batch_quant"] = check_decode_quant_kernel(dev, median_ms, stack_for)
-        bf16_report, bf16_launches = check_bf16_kernels(dev, median_ms, stack_for)
+        report.update(part("mla", check_mla_kernels, dev, median_ms))
+        report["siren_decode_batch_quant"] = part("2E", check_decode_quant_kernel, dev, median_ms, stack_for)
+        bf16_report, bf16_launches = part("bf16 modes", check_bf16_kernels, dev, median_ms, stack_for)
         report.update(bf16_report)
-        report["siren_decode_batch (bf16)"] = check_study_shapes(dev, median_ms, stack_for, targets_for, check_train)
-        total_len_errs = check_total_len(stack_for, targets_for, check_train)
+        report["siren_decode_batch (bf16)"] = part("study shapes", check_study_shapes, dev, median_ms, stack_for,
+                                                   targets_for, check_train)
+        total_len_errs = part("total_len", check_total_len, stack_for, targets_for, check_train)
+        print("  seconds of the phase's parts: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
         report["siren_train_grads"]["max_abs_err"] = max(report["siren_train_grads"]["max_abs_err"], total_len_errs[0])
         report["siren_decode_batch"]["max_abs_err"] = max(report["siren_decode_batch"]["max_abs_err"],
                                                           total_len_errs[1])
         check_compressed_payloads(stack_for)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        tmp = Path(tmp)
-        study_root = tmp / "study"
-        for counts in (siren_cuda.launches, siren_cuda.bf16_launches, siren_cuda.wgmma_launches,
-                       siren_train_cuda.launches):
-            for key in counts:
-                counts[key] = 0
-        plotting.not_drawn.clear()
-
-        # ---- 4. the study, every stage on the card ----
-        qat_calls, recon_calls, quant_calls, cache_calls = [], [], [], []
-        attn_calls, attn_recon, hp_calls, hp_recon = [], [], [], []
-        with phase("4 study"), counted(qat, "qat_finetune_checkpoints", qat_calls), \
-                counted(quantized_params, "_reconstruct", recon_calls), \
-                counted(quantized_params, "run_quantization_experiment", quant_calls), \
-                counted(synthetic, "generate_synthetic_kv", cache_calls), \
-                counted(attention_error, "run_attention_error_experiment", attn_calls), \
-                counted(attention_error, "_reconstruct", attn_recon), \
-                counted(head_policy, "run_head_policy_experiment", hp_calls), \
-                counted(head_policy, "_reconstruct", hp_recon):
-            print(f"  python -m nerf_attention_tpu_torch.study --root <tmp> --epochs {STUDY_EPOCHS} --compress "
-                  f"{STUDY_COMPRESS}: the synthetic reference recipe, {NUM_LAYERS}-layer metadata, {NUM_HEADS} KV "
-                  f"heads, S={SEQ_LEN}, D={HEAD_DIM}; the 280-fit sweep, the scaling ladder "
-                  f"{'/'.join(map(str, SCALING_LADDER))}, {len(PROMPTS)} prompts, the SVD grid, the {NUM_LAYERS}-layer "
-                  f"profile, the {NUM_LAYERS * NUM_HEADS * 2}-net aggregate decode, quantized storage ({N_FITS} "
-                  f"checkpoints x {len(QUANT_SCHEMES)} schemes, {QAT_EPOCHS} QAT epochs at N={N_FITS}), "
-                  f"compress at {STUDY_COMPRESS}; --attention: layers {'/'.join(map(str, ATTN_LAYERS))}, "
-                  f"{ATTN_HEADS} heads' K and V, medium nets, {ATTN_QUERIES} queries, gains "
-                  f"{'/'.join(f'{g:g}' for g in ATTN_GAINS)}; --serving: the hermetic {HP_LAYERS}-layer dense Llama "
-                  f"({HP_LAYERS * HP_KV} units, S=512, `small` nets, payloads {'/'.join(HP_PAYLOADS)}) and its plans")
-            print(f"  cuts: {'; '.join(STUDY_CUTS)}")
-            t0 = time.perf_counter()
-            stage_seconds = study.main(["--root", str(study_root), "--epochs", str(STUDY_EPOCHS),
-                                        "--compress", STUDY_COMPRESS, "--attention", "--serving"])
-            print(f"  the study: {time.perf_counter() - t0:.1f}s")
-        study_launches = {**siren_cuda.launches, **siren_train_cuda.launches,
-                          "siren_decode_batch (bf16)": siren_cuda.bf16_launches["siren_decode_batch"]}
-        # Every bf16 2C launch of the study (the aggregate decode's) went through csrc/siren_decode_bf16.cu.
-        assert siren_cuda.wgmma_launches["siren_decode_batch"] == study_launches["siren_decode_batch (bf16)"], (
-            siren_cuda.wgmma_launches, study_launches)
-
-        # ---- 5. what the study wrote ----
-        with phase("5 study checks"):
-            check_study(study_root, stage_seconds, tmp)
-            check_pt_checkpoints(study_root / "fits")
-            print(f"  the host generator, seconds per cache (S): "
-                  + ", ".join(f"{sec:.2f} ({seq_len})" for sec, _, _, seq_len in cache_calls)
-                  + f"; {sum(c[0] for c in cache_calls):.1f}s for {len(cache_calls)} caches")
-            print(f"  quantize experiment: {quant_calls[0][0]:.1f}s; QAT at N={N_FITS}: "
-                  + ", ".join(f"{sec:.2f}s for {a} steps ({1e3 * sec / a:.3f} ms a step)" for sec, a, _, _ in qat_calls)
-                  + f" (the experiment's, then compress's); compress stage {stage_seconds['compress']:.1f}s")
-
+    with workdir:
         # ---- 6. launches on the study path ----
         with phase("6 launches"):
             print(f"  {study_launches}")
@@ -4541,8 +4812,8 @@ def main() -> int:
             t0 = time.perf_counter()
             hybrid = hybrid_model(dev)  # phase 15's too
             config, params, (k_nets, v_nets, hstats), served = hybrid
-            print(f"  the hybrid engine's model: {config.num_hidden_layers} layers at Llama-3.1-8B widths, "
-                  f"init_random_llama's weights from seed 0 (drawn on the host), 64 `small` K and V nets from seed 1: "
+            print(f"  the hybrid engine's model: {config.num_hidden_layers} layers at Llama-3.1-8B widths, fp32 "
+                  f"weights drawn on the card from seed 0, {2 * served.size} `small` K and V nets from seed 1: "
                   f"{time.perf_counter() - t0:.1f}s")
             hk, hv = random_kv(config, SEQ_LEN, dev, seed=17)
             hck, hcv = (unserved_rows(c, served, SEQ_LEN) for c in (hk, hv))
@@ -4560,7 +4831,8 @@ def main() -> int:
                         "2B bf16": f"medium, S={SEQ_LEN}, exact sine, bf16 mode",
                         "2G": "H=16, S_buf=32768", "2H": "H=16, S_buf=32768",
                         "2E": f"{PLAN_NETS} small nets, S={PLAN_SEQ_LEN}, int4_g128",
-                        "hybrid step": f"Llama-3.1-8B widths, 8 layers, S={SEQ_LEN}, int4_g128 payloads"}.get(name, "T=16")
+                        "hybrid step": f"Llama-3.1-8B widths, {LLAMA_31_8B['num_hidden_layers']} layers, "
+                                       f"S={SEQ_LEN}, int4_g128 payloads"}.get(name, "T=16")
                 print(f"  {name} twice on the same inputs ({what}): bit-identical = {same}")
                 assert same
             del config, params, k_nets, v_nets, hstats, hk, hv, hck, hcv, hybrid_step, twice
@@ -4604,21 +4876,23 @@ def main() -> int:
         with phase("13 plan"):
             print(f"  Llama-3.1-8B widths: hidden 4096, 32 query / 8 KV heads, head_dim 128, SiLU FFN 14336, "
                   "rope_theta 500000 with llama3 scaling (factor 8, low 1, high 4, original 8192), rms eps 1e-5; "
-                  "fp32, TF32 off; random weights from seed 0 with the tool's head gains (1-64)")
+                  "fp32, TF32 off; phase 9's weights (drawn on the card from seed 0) with the tool's head gains "
+                  "(1-64)")
             print(f"  cuts: {'; '.join(PLAN_CUTS)}")
             print("  the tool's defaults otherwise: S=512, 64 rollout tokens, budgets 0.003/0.01/0.03, schemes "
-                  "master/int8_g32/int4_g128, `small` nets, 2000 epochs, 8 queries; one timing sample = 5 "
+                  f"master/int8_g32/int4_g128, `small` nets, 2000 epochs, 8 queries; one timing sample = {PLAN_REPS} "
                   "back-to-back rollouts (or reconstructions) between CUDA events, median of 3 samples; --hybrid: "
                   "the top budget's served set as a hybrid rollout per scheme, 3 samples of 2 rollouts")
-            # The tool draws init_random_llama(LLAMA_31_8B, seed 0) on the host: the weights phase 9 drew for the
-            # hybrid model, the same numbers, so it is handed those (apply_head_gains scales copies, not them).
+            # The tool draws init_random_llama(LLAMA_31_8B, seed 0) on the host (~1 min of numpy): it is handed
+            # phase 9's weights instead, drawn on the card with the same shapes and scales (apply_head_gains scales
+            # copies, not them).
             draw = plan_rollout_study.init_random_llama
             plan_rollout_study.init_random_llama = lambda cfg, seed=0, dtype=torch.float32, device=None: (
                 hybrid[1] if (cfg, seed, dtype) == (hybrid[0], 0, torch.float32) else draw(cfg, seed, dtype, device))
             try:
                 plan_payload = plan_rollout_study.main([
                     "--out", str(tmp / "plan_rollout.json"), "--seeds", "0", "--llama_config",
-                    json.dumps(LLAMA_31_8B), "--reduced", *PLAN_CUTS, "--hybrid"])
+                    json.dumps(LLAMA_31_8B), "--timing_reps", str(PLAN_REPS), "--reduced", *PLAN_CUTS, "--hybrid"])
             finally:
                 plan_rollout_study.init_random_llama = draw
         plan_launches = {key: counts[key] for counts, key in plan_kernels}

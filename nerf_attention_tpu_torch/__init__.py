@@ -2,13 +2,15 @@
 
 The port of ``nerf_attention_tpu`` (JAX on a TPU) to an NVIDIA H100. This
 facade exports the port's counterpart of every name of the JAX package's,
-but ``llama_prefill_kv_pp`` and ``shard_mla_params``, whose pipeline- and
-tensor-parallel paths wait for a later slice of the multi-device port
-(``ROADMAP.md`` queue 1, item 8); the multi-device ones it has (``fit_mesh``,
-the ``*_sharded`` kernels, ``llama_prefill_kv_sp``) run SPMD on a
-``torch.distributed`` mesh. ``siren_decode_fused`` is kernel 2B's wrapper,
-``siren_decode``. It imports plain modules only: the CUDA kernels build at
-their first launch, never on import.
+but ``llama_prefill_kv_pp`` and ``shard_mla_params``, the pipeline-parallel
+prefill and the MLA layout, which wait for later slices of the multi-device
+port (``ROADMAP.md`` queue 1, item 8); the multi-device ones it has
+(``fit_mesh``, the ``*_sharded`` kernels, ``llama_prefill_kv_sp``) run SPMD
+on a ``torch.distributed`` mesh. ``models.llama.shard_llama_params`` (the
+Llama's tensor parallelism) stays out of it, as it is out of JAX's.
+``siren_decode_fused`` is kernel 2B's wrapper, ``siren_decode``. It imports
+plain modules only: the CUDA kernels build at their first launch, never on
+import.
 """
 
 from nerf_attention_tpu_torch.types import (

@@ -188,8 +188,9 @@ __device__ __forceinline__ void write_partial(const State& st, int T, int D, flo
 // One block per head: merges the C chunks' partials in chunk order.
 // part_ml (N, C, T, 2), part_acc (N, C, T, D) -> out (N, T, D) and, when
 // m_out / l_out are not null, the merged m (the running max over every
-// attended score) and l = sum exp(s - m), each (N, T).
-__global__ void __launch_bounds__(kThreads) merge_chunks_kernel(
+// attended score) and l = sum exp(s - m), each (N, T). Static: each object of
+// a library built in parts (ops/_build.py's PARTS) holds its own copy.
+static __global__ void __launch_bounds__(kThreads) merge_chunks_kernel(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc, float* __restrict__ out,
     float* __restrict__ m_out, float* __restrict__ l_out, int C, int T, int D) {
     const int n = blockIdx.x;

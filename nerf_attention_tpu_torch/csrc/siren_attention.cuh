@@ -50,6 +50,9 @@
 #ifndef SIREN_ATTENTION_PREC
 #error "define SIREN_ATTENTION_PREC (a siren::Precision) before including siren_attention.cuh"
 #endif
+#ifndef SIREN_PART
+#error "define SIREN_PART (0 or 1): ops/_build.py builds this library in two parts"
+#endif
 
 #include <cuda_runtime.h>
 
@@ -186,10 +189,21 @@ static int run_kind(int kind, int smem, int* per_sm, dim3 grid, const Args& a, c
     }
 }
 
-template <int PREC>
+// The library is built in two parts that compile at once (SIREN_PART, ops/_build.py's PARTS): part 0
+// holds the exact-sine kernel instances and the entry points, part 1 the fast-sine instances behind run_fast.
+__attribute__((visibility("hidden"))) int run_fast(int kind, int smem, int* per_sm, dim3 grid, const Args& a,
+                                                   cudaStream_t st);
+
+#if SIREN_PART == 1
+int run_fast(int kind, int smem, int* per_sm, dim3 grid, const Args& a, cudaStream_t st) {
+    return run_kind<true, SIREN_ATTENTION_PREC>(kind, smem, per_sm, grid, a, st);
+}
+#endif
+
+#if SIREN_PART == 0
 static int run_sine(int fast, int kind, int smem, int* per_sm, dim3 grid, const Args& a, cudaStream_t st) {
-    return fast ? run_kind<true, PREC>(kind, smem, per_sm, grid, a, st)
-                : run_kind<false, PREC>(kind, smem, per_sm, grid, a, st);
+    return fast ? run_fast(kind, smem, per_sm, grid, a, st)
+                : run_kind<false, SIREN_ATTENTION_PREC>(kind, smem, per_sm, grid, a, st);
 }
 
 // How many blocks of this shape one SM holds with the arithmetic prec, which must be this library's
@@ -199,8 +213,7 @@ extern "C" int siren_attention_blocks_per_sm(int T, int H, int D, int rows, int 
     if (prec != SIREN_ATTENTION_PREC) return (int)cudaErrorInvalidValue;
     const int smem = smem_bytes(T, H, D, rows, prec);
     if (smem == 0) return 0;
-    return run_sine<SIREN_ATTENTION_PREC>(fast, attn_shape(T, H, D, rows, prec).kind, smem, per_sm, dim3(), Args{},
-                                          cudaStream_t{});
+    return run_sine(fast, attn_shape(T, H, D, rows, prec).kind, smem, per_sm, dim3(), Args{}, cudaStream_t{});
 }
 
 // Device-memory floats each block of this shape needs as scratch (0 but
@@ -236,7 +249,7 @@ extern "C" int siren_attention_launch(const long long* k_desc, const long long* 
     const int smem = (sh.floats() + attn_floats(T, D, rows, sh.wide())) * (int)sizeof(float);
     const Args a{&knet, &vnet, L, k_mean, k_std, v_mean, v_std, q, mult, part_ml, part_acc, scratch, S, T, sh,
                  omega, q_scale, causal, tiles_per_chunk};
-    const int err = run_sine<SIREN_ATTENTION_PREC>(fast, sh.kind, smem, nullptr, dim3(chunks, N), a, st);
+    const int err = run_sine(fast, sh.kind, smem, nullptr, dim3(chunks, N), a, st);
     if (err != 0) return err;
     attn::merge_chunks_kernel<<<N, attn::kThreads, 0, st>>>(part_ml, part_acc, out, m_out, l_out,
                                                             chunks, T, D);
@@ -246,3 +259,4 @@ extern "C" int siren_attention_launch(const long long* k_desc, const long long* 
 extern "C" const char* error_string(int status) {
     return cudaGetErrorString((cudaError_t)status);
 }
+#endif

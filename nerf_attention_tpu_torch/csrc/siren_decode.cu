@@ -39,6 +39,10 @@
 // products on activations rounded to bf16, the output written as bf16; its
 // records may be packed or dense.
 
+#ifndef SIREN_PART
+#error "define SIREN_PART (0 or 1): ops/_build.py builds this library in two parts"
+#endif
+
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -120,17 +124,35 @@ static int run_kind(int kind, Args... args) {
     }
 }
 
-template <int PREC, typename... Args>
-static int run_sine(int fast, int kind, Args... args) {
-    return fast ? run_kind<true, PREC>(kind, args...) : run_kind<false, PREC>(kind, args...);
+// The instance for the arithmetic (prec, a Precision) and the sine.
+template <bool FAST, typename... Args>
+static int run_prec(int prec, int kind, Args... args) {
+    if (prec == kBF16) return run_kind<FAST, kBF16>(kind, args...);
+    if (prec == kAct16) return run_kind<FAST, kAct16>(kind, args...);
+    return run_kind<FAST, kF32>(kind, args...);
 }
 
+// The library is built in two parts that compile at once (SIREN_PART, ops/_build.py's PARTS): part 0
+// holds the exact-sine kernel instances and the entry points, part 1 the fast-sine instances behind run_fast.
+__attribute__((visibility("hidden"))) int run_fast(int prec, int kind, int smem, int* per_sm, dim3 grid,
+                                                   const NetDesc& net, int L, const float* mult, void* out,
+                                                   float* scratch, int S, float xden, const StackShape& sh,
+                                                   float omega, int tiles_per_chunk, cudaStream_t st);
+
+#if SIREN_PART == 1
+int run_fast(int prec, int kind, int smem, int* per_sm, dim3 grid, const NetDesc& net, int L, const float* mult,
+             void* out, float* scratch, int S, float xden, const StackShape& sh, float omega, int tiles_per_chunk,
+             cudaStream_t st) {
+    return run_prec<true>(prec, kind, smem, per_sm, grid, net, L, mult, out, scratch, S, xden, sh, omega,
+                          tiles_per_chunk, st);
+}
+#endif
+
+#if SIREN_PART == 0
 // The instance for the sine (fast) and the arithmetic (prec, a Precision).
 template <typename... Args>
 static int run_mode(int fast, int prec, int kind, Args... args) {
-    if (prec == kBF16) return run_sine<kBF16>(fast, kind, args...);
-    if (prec == kAct16) return run_sine<kAct16>(fast, kind, args...);
-    return run_sine<kF32>(fast, kind, args...);
+    return fast ? run_fast(prec, kind, args...) : run_prec<false>(prec, kind, args...);
 }
 
 // How many blocks of this shape one SM holds (0 for a shape the kernel does
@@ -182,3 +204,4 @@ extern "C" int siren_decode_launch(const long long* desc, int L, const float* mu
 extern "C" const char* error_string(int status) {
     return cudaGetErrorString((cudaError_t)status);
 }
+#endif

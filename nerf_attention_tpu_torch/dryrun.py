@@ -14,15 +14,21 @@ run on the same inputs, as the JAX dry run does on its CPU mesh
   decodes, 5e-5 for attention): on a card the launch plans split a problem
   by its net count, so a shard's sums may run in another order (on the CPU
   they are equal bit for bit);
+* the tensor-parallel Llama of ``:253-335`` (hidden 8n, intermediate 16n,
+  n query and n KV heads of width 8, 2 layers; ``shard_llama_params``): the
+  prefill of 16 tokens, the decode step at position 12 over the rank's
+  heads of the prefix and a 4-token rollout from the rank's shard of the
+  buffers, against the unsharded calls within 1e-4, the rollout's filled
+  rows against the prefill's;
 * the sequence-parallel prefill of a tiny random Llama against the
   single-device prefill, within 1e-4.
 
-By default the ranks are Gloo processes on the CPU, where the wrappers take
-their plain versions; ``device="cuda"`` starts one NCCL rank a card, where
-every shard goes through the kernels. The tensor-, pipeline- and
-expert-parallel sections of the JAX dry run (``:253-335``, ``:351-467``)
-wait for the next slice of the multi-device port (``ROADMAP.md`` queue 1,
-item 8).
+By default the ranks are NCCL processes, one a card, where every shard goes
+through the kernels; without a card that raises. ``device="cpu"`` starts
+Gloo ranks on the CPU, where the wrappers take their plain versions. The
+pipeline- and expert-parallel sections of the JAX dry run (``:351-467``)
+and its MLA section wait for the next slices of the multi-device port
+(``ROADMAP.md`` queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -63,6 +69,31 @@ def _check(what: str, gap: float, limit: float, gaps: dict) -> None:
         raise AssertionError(f"{what}: sharded against unsharded differ by {gap:.3e} (limit {limit:.0e})")
 
 
+def _tp_section(mesh, dev, gaps: dict) -> None:
+    """``__graft_entry__.py:253-335`` on this rank: the TP prefill, step and rollout against the unsharded ones."""
+    n = mesh.size()
+    config = llama.LlamaConfig(vocab_size=64, hidden_size=8 * n, intermediate_size=16 * n, num_hidden_layers=2,
+                               num_attention_heads=n, num_key_value_heads=n, head_dim=8)
+    params = llama.init_random_llama(config, seed=0, device=dev)
+    sharded = llama.shard_llama_params(params, mesh, config=config)
+    ids, prefix = np.arange(16), 12  # the rollout takes the last 4 tokens
+    k_ref, v_ref = llama.llama_prefill_kv(config, params, ids)
+    _check("tp prefill", max(_gap(a, b) for a, b in zip(llama.llama_prefill_kv(config, sharded, ids),
+                                                        (k_ref, v_ref))), 1e-4, gaps)
+    ck, cv = k_ref[:, :, :prefix], v_ref[:, :, :prefix]
+    h, (k_new, _), _ = llama.llama_decode_step(config, params, int(ids[prefix]), prefix, ck, cv)
+    h_tp, (k_new_tp, _), _ = llama.llama_decode_step(config, sharded, int(ids[prefix]), prefix, ck, cv)
+    _check("tp decode step", max(_gap(h_tp, h), _gap(k_new_tp, k_new)), 1e-4, gaps)
+    kept = (torch.arange(len(ids), device=dev) < prefix)[None, None, :, None]
+    buffers = [torch.where(kept, x, 0.0) for x in (k_ref, v_ref)]
+    hs, (k_fill, _), _, _ = llama.llama_decode_rollout(config, params, ids[prefix:], prefix,
+                                                       *[x.clone() for x in buffers])
+    shards = [llama.shard_kv_heads(x, sharded["tp"]) for x in buffers]
+    hs_tp, (k_fill_tp, _), _, _ = llama.llama_decode_rollout(config, sharded, ids[prefix:], prefix, *shards)
+    _check("tp rollout", _gap(hs_tp, hs), 1e-4, gaps)
+    _check("tp rollout refill", max(_gap(k_fill, k_ref), _gap(k_fill_tp, k_ref)), 1e-4, gaps)
+
+
 def dryrun_rank(mesh) -> dict[str, float]:
     """One rank's dry run; returns each section's largest gap from its unsharded run (raises past a limit)."""
     n, dev = mesh.size(), mesh_device(mesh)
@@ -94,6 +125,8 @@ def dryrun_rank(mesh) -> dict[str, float]:
     want = siren_attention_decode_quant(kp, vp, *stats, q, "int8_g32", omega, SEQ_LEN, **kw)
     _check("2F (o, m, l)", max(_gap(a, b) for a, b in zip(got, want)), ATTENTION_ATOL, gaps)
 
+    _tp_section(mesh, dev, gaps)
+
     lparams = llama.init_random_llama(LLAMA, seed=0, device=dev)
     ids = np.arange(2 * n) % LLAMA.vocab_size
     ref = llama.llama_prefill_kv(LLAMA, lparams, ids)
@@ -102,8 +135,9 @@ def dryrun_rank(mesh) -> dict[str, float]:
     return gaps
 
 
-def dryrun_multichip(n_devices: int, device: str = "cpu") -> dict[str, float]:
-    """The dry run on ``n_devices`` ranks: Gloo on the CPU (``device="cpu"``), or one NCCL rank a card
-    (``"cuda"``). Returns rank 0's gaps; raises if any rank fails."""
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict[str, float]:
+    """The dry run on ``n_devices`` ranks: one NCCL rank a card (``"cuda"``, raising without a card), Gloo ranks
+    sharing one card (``"cuda:0"``), or Gloo on the CPU (``device="cpu"``). Returns rank 0's gaps; raises if any
+    rank fails."""
     return run_on_mesh(dryrun_rank, world_size=n_devices, device=device)
 

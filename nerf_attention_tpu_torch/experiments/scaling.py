@@ -27,6 +27,7 @@ from nerf_attention_tpu_torch.analyze import analyze_kv_cache
 from nerf_attention_tpu_torch.evaluate import HBM_BW
 from nerf_attention_tpu_torch.fit import _batch_to_fit_result, result_to_record
 from nerf_attention_tpu_torch.io import checkpoint, kvstore
+from nerf_attention_tpu_torch.parallel.mesh import barrier, mesh_device
 from nerf_attention_tpu_torch.parallel.sweep import fit_batch
 from nerf_attention_tpu_torch.synthetic import ensure_synthetic_cache
 from nerf_attention_tpu_torch.types import CONFIGS_BY_NAME, KVMetadata
@@ -390,6 +391,7 @@ def run_full_layer_profile(
     verbose: bool = True,
     device: torch.device | str | None = None,
     synth_dim: int = 128,
+    mesh=None,
 ) -> list[dict]:
     """A medium SIREN on head 0's keys and values of EVERY layer, as one batch.
 
@@ -397,13 +399,20 @@ def run_full_layer_profile(
     none of this recipe and geometry (``ensure_synthetic_cache``), head width
     ``synth_dim`` included: the JAX function checks the cache against width
     128 whatever it holds, and so regenerates a narrower one under its fits.
+    ``mesh``: the batch's fits sharded over its ranks (``fit_batch(mesh=)``,
+    as JAX's :518); every rank calls this, rank 0 generates the cache and
+    writes the JSON while the others wait, and every rank returns the records.
     """
     kv_dir, output_dir = Path(kv_dir), Path(output_dir)
-    device = resolve_device(device)
-    output_dir.mkdir(parents=True, exist_ok=True)
-    if backend == "synthetic":
-        ensure_synthetic_cache(kv_dir, values_mode=values_mode, seq_len=synth_seq_len, num_layers=synth_layers,
-                               num_kv_heads=synth_heads, head_dim=synth_dim, verbose=verbose)
+    device = resolve_device(device) if mesh is None else mesh_device(mesh, device)
+    writer = mesh is None or mesh.get_local_rank() == 0
+    if writer:
+        output_dir.mkdir(parents=True, exist_ok=True)
+        if backend == "synthetic":
+            ensure_synthetic_cache(kv_dir, values_mode=values_mode, seq_len=synth_seq_len, num_layers=synth_layers,
+                                   num_kv_heads=synth_heads, head_dim=synth_dim, verbose=verbose)
+    if mesh is not None:
+        barrier(mesh)
     metadata = kvstore.load_metadata(kv_dir)
 
     grid: list[tuple[int, str]] = []
@@ -423,7 +432,7 @@ def run_full_layer_profile(
         )
     if verbose:
         print(f"Layer profile: {len(grid)} fits x {epochs} epochs (one batch)")
-    batch = fit_batch(np.stack(tensors), MEDIUM, epochs=epochs, fm_mult=fm_mult, device=device)
+    batch = fit_batch(np.stack(tensors), MEDIUM, epochs=epochs, fm_mult=fm_mult, device=device, mesh=mesh)
     if verbose:
         print(f"  done in {batch.train_time_seconds:.1f}s ({batch.seconds_per_fit:.3f} s/fit)")
 
@@ -442,8 +451,11 @@ def run_full_layer_profile(
     if verbose:
         for r in results:
             print(f"  L{r['layer']}_{r['kv_type']}: CosSim={r['final_cosine_mean']:.4f}")
-    with open(output_dir / "full_layer_profile.json", "w") as f:
-        json.dump(results, f, indent=2)
+    if writer:
+        with open(output_dir / "full_layer_profile.json", "w") as f:
+            json.dump(results, f, indent=2)
+    if mesh is not None:
+        barrier(mesh)
     return results
 
 

@@ -23,10 +23,13 @@ Three backends write the kvstore layout every later stage reads:
 
 ``--model`` must be a local checkpoint directory: there is no network, and a
 hub name does not resolve. ``--mesh sp`` runs the jax backend's prefill
-sequence-parallel over a fit mesh (``models/llama.llama_prefill_kv_sp``; one
-NCCL rank a visible card, or ``--mesh_ranks`` Gloo ranks with ``--device
-cpu``; rank 0 writes); ``--mesh tp|pp|ep`` wait for ``ROADMAP.md`` queue 8
-and are refused, and so is any mesh for an MLA checkpoint, as in JAX.
+sequence-parallel over a fit mesh (``models/llama.llama_prefill_kv_sp``),
+``--mesh tp`` tensor-parallel (``models/llama.shard_llama_params``: each rank
+reads the checkpoint on the host and puts its heads' and FFN columns' weights
+on its device); one NCCL rank a visible card (or torchrun's ranks), or
+``--mesh_ranks`` Gloo ranks with ``--device cpu``; rank 0 writes.
+``--mesh pp|ep`` wait for ``ROADMAP.md`` queue 8 and are refused, and so is
+any mesh for an MLA checkpoint, as in JAX.
 ``--device`` resolves as every other CLI's does (the GPU unless ``--device
 cpu``).
 """
@@ -234,22 +237,24 @@ def refuse_mla_mesh(model_dir) -> None:
 
 
 def extract_kv_cache_jax(model_dir, seq_len: int, output_dir: Path, text: str | None = None,
-                         state: dict | None = None, device=None, seq_mesh=None) -> KVMetadata:
+                         state: dict | None = None, device=None, seq_mesh=None, mesh=None) -> KVMetadata:
     """The jax backend (the JAX ``extract_kv_cache_jax``, :255): a DeepSeek V2/V3 directory goes to the MLA
     extractor, every other to the Llama one, in bf16. ``state`` shares one load across calls. ``seq_mesh``: the
-    Llama prefill sequence-parallel over its ranks (each rank calls this); an MLA checkpoint refuses it."""
+    Llama prefill sequence-parallel over its ranks, ``mesh`` tensor-parallel (each rank calls this); an MLA
+    checkpoint refuses both."""
     text = text if text is not None else get_sample_text()
-    if seq_mesh is not None:
+    if seq_mesh is not None or mesh is not None:
         refuse_mla_mesh(model_dir)
     if is_mla_checkpoint(model_dir):
         return extract_kv_with_mla(model_dir, seq_len=seq_len, output_dir=Path(output_dir), text=text, state=state,
                                    device=device)
     return extract_kv_with_llama(model_dir, seq_len=seq_len, output_dir=Path(output_dir), text=text, state=state,
-                                 device=device, seq_mesh=seq_mesh)
+                                 device=device, seq_mesh=seq_mesh, mesh=mesh)
 
 
-def _extract_sp_rank(mesh, model_dir, seq_len: int, output_dir: Path) -> None:
-    extract_kv_cache_jax(model_dir, seq_len, output_dir, seq_mesh=mesh)
+def _extract_rank(mesh, model_dir, seq_len: int, output_dir: Path, kind: str) -> None:
+    """One rank of ``--mesh sp`` or ``--mesh tp``."""
+    extract_kv_cache_jax(model_dir, seq_len, output_dir, **{"seq_mesh" if kind == "sp" else "mesh": mesh})
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -267,24 +272,24 @@ def main(argv: list[str] | None = None) -> None:
                         "(attention-sharpened, reproduces the real K>>V gap)")
     parser.add_argument("--mesh", type=str, default=None, choices=["tp", "sp", "pp", "ep"],
                         help="jax backend only: shard the prefill over a fit mesh; 'sp' shards the token axis "
-                        "(sequence parallel, the long-context path); tp, pp and ep are not ported (ROADMAP.md "
-                        "queue 8)")
+                        "(sequence parallel, the long-context path), 'tp' the weights (Megatron tensor parallel); "
+                        "pp and ep are not ported (ROADMAP.md queue 8)")
     parser.add_argument("--mesh_ranks", type=int, default=None,
                         help="ranks of the --mesh (default: every visible card; required with --device cpu)")
     args = parser.parse_args(argv)
 
     synthetic = args.synthetic or args.backend == "synthetic"
-    if args.mesh is not None and args.mesh != "sp":
-        raise NotImplementedError(f"--mesh {args.mesh} is not ported to PyTorch: the tensor-, pipeline- and "
-                                  "expert-parallel prefills wait for ROADMAP.md queue 8; run it with python -m "
+    if args.mesh in ("pp", "ep"):
+        raise NotImplementedError(f"--mesh {args.mesh} is not ported to PyTorch: the pipeline- and expert-parallel "
+                                  "prefills wait for ROADMAP.md queue 8; run it with python -m "
                                   "nerf_attention_tpu.extract")
     if args.mesh is not None and (synthetic or args.backend != "jax"):
-        raise ValueError("--mesh sp shards the jax backend's prefill: pass --backend jax")
+        raise ValueError(f"--mesh {args.mesh} shards the jax backend's prefill: pass --backend jax")
     if not synthetic:
         require_local_model(args.model)
     if args.mesh is not None:
         refuse_mla_mesh(args.model)  # before the ranks start
-        run_on_mesh(_extract_sp_rank, args.model, args.seq_len, Path(args.output_dir),
+        run_on_mesh(_extract_rank, args.model, args.seq_len, Path(args.output_dir), args.mesh,
                     world_size=args.mesh_ranks, device=args.device)
         return
     device = resolve_device(args.device)

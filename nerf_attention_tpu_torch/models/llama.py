@@ -34,8 +34,17 @@ What differs from the JAX module, and only in form:
 * ``llama_prefill_kv_sp`` (the sequence-parallel prefill) runs SPMD on a
   ``torch.distributed`` mesh (``parallel/mesh.py``): every rank passes the
   whole token sequence and returns the whole cache, where JAX's returns it
-  row-sharded. The pipeline-parallel prefill and the tensor-parallel
-  layouts are not ported (``ROADMAP.md`` queue 1, item 8).
+  row-sharded.
+* Tensor parallelism (``shard_llama_params``, JAX's Megatron layout) runs
+  SPMD on such a mesh too: each rank holds its heads' and its FFN columns'
+  weights, and the prefill, the decode step and the rollout take the sharded
+  params in place of ``params``. Where JAX's GSPMD inserts the collectives,
+  the forward calls them itself: one sum over the ranks a sublayer
+  (``all_reduce_sum``), K/V and per-head outputs gathered over heads. The
+  shard takes the config (it cuts at head boundaries) and refuses what the
+  port has no counterpart for: expert parallelism, and KV heads that neither
+  divide over the ranks nor divide them. The pipeline-parallel prefill and
+  expert parallelism are not ported (``ROADMAP.md`` queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ from nerf_attention_tpu_torch.models.layers import (
     _softcap,
 )
 from nerf_attention_tpu_torch.parallel.mesh import (
+    LocalShard,
+    all_reduce_sum,
     barrier,
     check_divisible,
     check_on_mesh,
@@ -400,43 +411,90 @@ def _qk_norm_weights(lp: dict, q_shape: tuple, k_shape: tuple):
     return qw, kw
 
 
-def _layer_tail(config: LlamaConfig, h, x, attn_flat, lp):
+def _layer_tail(config: LlamaConfig, h, x, attn_flat, lp, tp: "TPLayout | None" = None):
     """The attention-output projection and the family's residual wiring around the FFN.
 
     ``x`` is the layer's input-norm output (Cohere's FFN reads it). Returns
     (h, ffn_x): ffn_x is the tensor the FFN read (a sparse-MoE router's input).
+    Under tensor parallelism (``tp``) ``attn_flat`` holds the rank's heads and
+    the FFN its columns, so each sublayer's output is a partial sum, summed
+    over the ranks before the residual or a norm reads it, and ``o_bias``
+    (replicated) is added once after that sum. Cohere's parallel block takes
+    one sum of both partials. GPT-OSS's experts are replicated under TP:
+    their output is whole on every rank and is not summed.
     """
-    attn_out = attn_flat @ lp["o"] + lp["o_bias"]
     act = _mlp_act(config.hidden_act)
+    attn_sum = (lambda y: y) if tp is None else tp.reduce
+    ffn_sum = attn_sum if config.moe_style != "gpt_oss" or not config.num_local_experts else (lambda y: y)
     if config.parallel_residual:
-        return h + attn_out + _ffn(config, x, lp, act), x
+        ffn_out = _ffn(config, x, lp, act)
+        if tp is None:
+            return h + (attn_flat @ lp["o"] + lp["o_bias"]) + ffn_out, x
+        if ffn_sum is attn_sum:
+            return h + (tp.reduce(attn_flat @ lp["o"] + ffn_out) + lp["o_bias"]), x
+        return h + (tp.reduce(attn_flat @ lp["o"]) + lp["o_bias"]) + ffn_out, x
+    attn_out = attn_sum(attn_flat @ lp["o"]) + lp["o_bias"]
     if config.sandwich_norms or config.norm_after_only:
         h = h + _norm(config, attn_out, lp["post_norm"])
         x = h if config.norm_after_only else _norm(config, h, lp["pre_ffn_norm"])
-        return h + _norm(config, _ffn(config, x, lp, act), lp["post_ffn_norm"]), x
+        return h + _norm(config, ffn_sum(_ffn(config, x, lp, act)), lp["post_ffn_norm"]), x
     rm = config.residual_multiplier
     h = h + (attn_out if rm == 1.0 else attn_out * rm)
     x = _norm(config, h, lp["post_norm"])
-    ffn_out = _ffn(config, x, lp, act)
+    ffn_out = ffn_sum(_ffn(config, x, lp, act))
     return h + (ffn_out if rm == 1.0 else ffn_out * rm), x
 
 
-def _layer_forward(config: LlamaConfig, h, lp, kind, tables, kv_join=None, row_offset: int = 0):
+def _heads(config: LlamaConfig, tp: "TPLayout | None") -> tuple[int, int]:
+    """(query heads, KV heads) this rank computes: all of them, or its TP shard's."""
+    if tp is None:
+        return config.num_attention_heads, config.num_key_value_heads
+    return tp.n_q, tp.n_kv
+
+
+def _flat_qk_norm(config: LlamaConfig, q_flat, k_flat, lp, tp: "TPLayout | None"):
+    """OLMo-2's RMSNorm of the flat q and k projections (each over all n_heads * D columns).
+
+    Under TP a rank holds its heads' columns and its slice of the weights:
+    the sum of squares is summed over the ranks in fp32, then each rank
+    scales its columns. Where the KV heads are replicated, only each head's
+    first holder adds its k columns' squares, so every column counts once.
+    """
+    if tp is None:
+        return _norm(config, q_flat, lp["q_norm"]), _norm(config, k_flat, lp["k_norm"])
+    d = config.head_dim
+
+    def norm(x, weight, width, counted):
+        xf = x.float()
+        squares = torch.sum(xf * xf, dim=-1, keepdim=True)
+        total = tp.reduce(squares if counted else torch.zeros_like(squares))
+        w = weight.float()
+        return (xf * torch.rsqrt(total / width + config.rms_norm_eps) * (1.0 + w if config.norm_offset else w)
+                ).to(x.dtype)
+
+    return (norm(q_flat, lp["q_norm"], config.num_attention_heads * d, True),
+            norm(k_flat, lp["k_norm"], config.num_key_value_heads * d, tp.kv_first))
+
+
+def _layer_forward(config: LlamaConfig, h, lp, kind, tables, kv_join=None, row_offset: int = 0,
+                   tp: "TPLayout | None" = None):
     """One decoder layer over the sequence h (S, hidden). Returns (h, (keys, values)), each (n_kv, S, D).
 
     ``kv_join(k, v)``: where h holds a sequence-parallel slice of the rows
     starting at global row ``row_offset`` (``tables`` at those positions), the
     whole sequence's (n_kv, S_total, D) keys and values from this slice's;
     attention then sees the whole prefix, masked in global coordinates, and
-    the joined keys and values are returned.
+    the joined keys and values are returned. ``tp``: this rank's heads of a
+    tensor-parallel layer (``lp`` its shard); the keys and values are its KV
+    heads', and h comes back whole.
     """
-    n_q, n_kv, d = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    (n_q, n_kv), d = _heads(config, tp), config.head_dim
     s = h.shape[0]
     window, rope = kind
     x = h if config.norm_after_only else _norm(config, h, lp["input_norm"])
     q_flat, k_flat = x @ lp["q"] + lp["q_bias"], x @ lp["k"] + lp["k_bias"]
     if config.qk_norm_full:
-        q_flat, k_flat = _norm(config, q_flat, lp["q_norm"]), _norm(config, k_flat, lp["k_norm"])
+        q_flat, k_flat = _flat_qk_norm(config, q_flat, k_flat, lp, tp)
     q = q_flat.reshape(s, n_q, d).transpose(0, 1)
     k = k_flat.reshape(s, n_kv, d).transpose(0, 1)
     v = (x @ lp["v"] + lp["v_bias"]).reshape(s, n_kv, d).transpose(0, 1)
@@ -452,21 +510,30 @@ def _layer_forward(config: LlamaConfig, h, lp, kind, tables, kv_join=None, row_o
     attn = _causal_attention(q, k.repeat_interleave(group, dim=0), v.repeat_interleave(group, dim=0),
                              scale=config.attn_scale, window=window, softcap=config.attn_logit_softcap,
                              sinks=lp["sinks"] if config.attn_sinks else None, row_offset=row_offset)
-    h, _ = _layer_tail(config, h, x, attn.transpose(0, 1).reshape(s, n_q * d), lp)
+    h, _ = _layer_tail(config, h, x, attn.transpose(0, 1).reshape(s, n_q * d), lp, tp)
     return h, (k, v)
 
 
 @torch.no_grad()
 def llama_prefill_kv(config: LlamaConfig, params: dict, input_ids):
-    """One prefill pass -> per-layer post-RoPE KV, each (num_layers, num_kv_heads, S, head_dim)."""
+    """One prefill pass -> per-layer post-RoPE KV, each (num_layers, num_kv_heads, S, head_dim).
+
+    ``params`` may be ``shard_llama_params``'s: every rank of its mesh calls
+    this with the same ids, runs its heads, and gets the whole K/V, gathered
+    over heads once at the end.
+    """
+    tp = _layout(params)
     ids = torch.as_tensor(np.asarray(input_ids), device=params["embed"].device).long()
     h = _embed(config, params["embed"], ids)
     tables = _tables(config, torch.arange(ids.shape[0], device=h.device), h.dtype)
     keys, values = [], []
     for lp, kind in zip(params["layers"], _layer_kinds(config)):
-        h, (k, v) = _layer_forward(config, h, lp, kind, tables)
+        h, (k, v) = _layer_forward(config, h, lp, kind, tables, tp=tp)
         keys.append(k), values.append(v)
-    return torch.stack(keys), torch.stack(values)
+    keys, values = torch.stack(keys), torch.stack(values)
+    if tp is None:
+        return keys, values
+    return tp.gather_kv(keys, 1), tp.gather_kv(values, 1)
 
 
 @torch.no_grad()
@@ -484,6 +551,9 @@ def llama_prefill_kv_sp(config: LlamaConfig, params: dict, input_ids, mesh):
     the whole (L, n_kv, S, D) keys and values on every rank: the gathered K/V
     of each layer, with no further collective.
     """
+    if "tp" in params:
+        raise ValueError("the sequence-parallel prefill takes replicated params, not shard_llama_params' (SP and "
+                         "TP are mutually exclusive, as in JAX)")
     check_on_mesh(params["embed"], mesh)
     ids = torch.as_tensor(np.asarray(input_ids)).long()
     check_divisible(int(ids.shape[0]), mesh, "seq_len")
@@ -503,14 +573,15 @@ def llama_prefill_kv_sp(config: LlamaConfig, params: dict, input_ids, mesh):
     return torch.stack(keys), torch.stack(values)
 
 
-def _qkv_from_x(config: LlamaConfig, x, lp, cos, sin):
+def _qkv_from_x(config: LlamaConfig, x, lp, cos, sin, tp: "TPLayout | None" = None):
     """A layer's queries (*lead, n_kv, group, D), key and value (*lead, n_kv, 1, D) for tokens whose input-norm
-    output is x (*lead, hidden), rotated by cos / sin (*lead, 1, 1, rotary_dim) unless those are None."""
-    n_q, n_kv, d = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    output is x (*lead, hidden), rotated by cos / sin (*lead, 1, 1, rotary_dim) unless those are None; the rank's
+    heads under TP (``tp``)."""
+    (n_q, n_kv), d = _heads(config, tp), config.head_dim
     lead, group = x.shape[:-1], n_q // n_kv
     q_flat, k_flat = x @ lp["q"] + lp["q_bias"], x @ lp["k"] + lp["k_bias"]
     if config.qk_norm_full:
-        q_flat, k_flat = _norm(config, q_flat, lp["q_norm"]), _norm(config, k_flat, lp["k_norm"])
+        q_flat, k_flat = _flat_qk_norm(config, q_flat, k_flat, lp, tp)
     # Query head i * group + j reads KV head i (jnp.repeat order), so queries group as (n_kv, group).
     q = q_flat.reshape(*lead, n_kv, group, d)
     k = k_flat.reshape(*lead, n_kv, 1, d)
@@ -550,7 +621,8 @@ def _attend_cache_and_self(q, k, v, cache_k, cache_v, visible, scale, softcap=No
     return p[..., :n] @ cache_v + p[..., n:n + 1] * v, probs
 
 
-def _layer_decode(config: LlamaConfig, h, lp, kind, cache_k, cache_v, position, tables):
+def _layer_decode(config: LlamaConfig, h, lp, kind, cache_k, cache_v, position, tables,
+                  tp: "TPLayout | None" = None):
     """One layer for a batch of single tokens, each over its cache.
 
     h (*B, hidden); cache_k / cache_v (*C, n_kv, S, D) post-RoPE with C
@@ -560,14 +632,15 @@ def _layer_decode(config: LlamaConfig, h, lp, kind, cache_k, cache_v, position, 
     row always; row ``position`` itself and everything past it are masked, so
     a pre-allocated buffer longer than the prefix decodes correctly. Returns
     (h, (k_new, v_new) (*B, n_kv, 1, D), entropy (*B, n_q), sink mass (*B,
-    n_q), ffn_x (*B, hidden)).
+    n_q), ffn_x (*B, hidden)). Under TP (``tp``) the caches, the new rows and
+    the per-head outputs are the rank's heads'; h comes back whole.
     """
-    n_q, n_kv, d = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    (n_q, n_kv), d = _heads(config, tp), config.head_dim
     lead = h.shape[:-1]
     window, rope = kind
     x = h if config.norm_after_only else _norm(config, h, lp["input_norm"])
     cos, sin = tables[rope] if rope is not None else (None, None)
-    q, k, v = _qkv_from_x(config, x, lp, cos, sin)
+    q, k, v = _qkv_from_x(config, x, lp, cos, sin, tp)
     cols = torch.arange(cache_k.shape[-2], device=h.device)
     pos = position if isinstance(position, int) else position[..., None, None, None]
     visible = cols < pos
@@ -579,8 +652,33 @@ def _layer_decode(config: LlamaConfig, h, lp, kind, cache_k, cache_v, position, 
                                          softcap=config.attn_logit_softcap, sinks=sinks)
     entropy = -torch.sum(torch.where(probs > 0, probs * torch.log(probs), 0.0), dim=-1).reshape(*lead, n_q)
     sink_mass = probs[..., -1].reshape(*lead, n_q) if config.attn_sinks else torch.zeros_like(entropy)
-    h, ffn_x = _layer_tail(config, h, x, attn.reshape(*lead, -1), lp)
+    h, ffn_x = _layer_tail(config, h, x, attn.reshape(*lead, -1), lp, tp)
     return h, (k, v, entropy, sink_mass, ffn_x)
+
+
+def _decode(config: LlamaConfig, params: dict, token_id, position, cache_keys, cache_values, tp):
+    """The decode step over caches of the rank's KV heads: (h, k_new, v_new, entropy, sink mass, ffn_x), the
+    per-head ones over the rank's heads (``llama_decode_step``'s shapes otherwise)."""
+    embed = params["embed"]
+    if isinstance(token_id, torch.Tensor) and token_id.dim() > 0:
+        token_id = token_id.to(embed.device)
+        if not isinstance(position, torch.Tensor):  # a fill on the device, not a copy from the host
+            position = torch.full((), int(position), device=embed.device)
+        position = position.to(embed.device).expand(token_id.shape)
+        h = _embed(config, embed, token_id.long())
+        tables = _tables(config, position, h.dtype)
+    else:
+        h = _embed(config, embed, int(token_id))
+        position = int(position)
+        tables = _tables(config, torch.full((), position, device=embed.device), h.dtype)
+    tables = {name: (cos[..., None, None, :], sin[..., None, None, :]) for name, (cos, sin) in tables.items()}
+    outs = []
+    for i, (lp, kind) in enumerate(zip(params["layers"], _layer_kinds(config))):
+        h, out = _layer_decode(config, h, lp, kind, cache_keys[..., i, :, :, :], cache_values[..., i, :, :, :],
+                               position, tables, tp)
+        outs.append(out)
+    axis = h.dim() - 1
+    return (h, *(torch.stack(list(x), dim=axis) for x in zip(*outs)))
 
 
 @torch.no_grad()
@@ -602,27 +700,19 @@ def llama_decode_step(config: LlamaConfig, params: dict, token_id, position, cac
     layer's FFN input (*B, num_layers, 1, hidden), the tensor a sparse-MoE
     router reads; ``capture_sink_mass`` appends, last, each head's sink mass
     (*B, num_layers, num_attention_heads), zeros without ``attn_sinks``.
+
+    With ``shard_llama_params``' params every rank of the mesh calls this with
+    the same token and position and passes either the global caches (on the
+    mesh's kind of device; it reads its KV heads) or its ``shard_kv_heads``
+    shard of them; h comes back whole, and the new rows and the per-head
+    outputs gathered over heads, on every rank.
     """
-    embed = params["embed"]
-    if isinstance(token_id, torch.Tensor) and token_id.dim() > 0:
-        token_id = token_id.to(embed.device)
-        if not isinstance(position, torch.Tensor):  # a fill on the device, not a copy from the host
-            position = torch.full((), int(position), device=embed.device)
-        position = position.to(embed.device).expand(token_id.shape)
-        h = _embed(config, embed, token_id.long())
-        tables = _tables(config, position, h.dtype)
-    else:
-        h = _embed(config, embed, int(token_id))
-        position = int(position)
-        tables = _tables(config, torch.full((), position, device=embed.device), h.dtype)
-    tables = {name: (cos[..., None, None, :], sin[..., None, None, :]) for name, (cos, sin) in tables.items()}
-    outs = []
-    for i, (lp, kind) in enumerate(zip(params["layers"], _layer_kinds(config))):
-        h, out = _layer_decode(config, h, lp, kind, cache_keys[..., i, :, :, :], cache_values[..., i, :, :, :],
-                               position, tables)
-        outs.append(out)
-    axis = h.dim() - 1
-    k_new, v_new, ent, sink_mass, ffn_x = (torch.stack(list(x), dim=axis) for x in zip(*outs))
+    tp = _layout(params)
+    h, k_new, v_new, ent, sink_mass, ffn_x = _decode(config, params, token_id, position, _local_kv(cache_keys, tp),
+                                                     _local_kv(cache_values, tp), tp)
+    if tp is not None:
+        k_new, v_new, ent = tp.gather_kv(k_new, -3), tp.gather_kv(v_new, -3), tp.gather_q(ent, -1)
+        sink_mass = tp.gather_q(sink_mass, -1) if capture_sink_mass else sink_mass
     result = [h, (k_new, v_new), ent]
     if capture_ffn_input:
         result.append(ffn_x.unsqueeze(-2))
@@ -651,26 +741,219 @@ def llama_decode_rollout(config: LlamaConfig, params: dict, token_ids, start_pos
     tensors), (k_new, v_new) (*B, T, num_layers, num_kv_heads, 1, head_dim)
     each step's own computed rows, entropy (*B, T, num_layers,
     num_attention_heads)).
+
+    With ``shard_llama_params``' params (every rank calls this alike) each
+    step writes its rows into the rank's KV heads of the buffers, the global
+    ones or its ``shard_kv_heads`` shard, and gathers nothing of the cache;
+    at the end the rows, the entropies and the filled buffers are gathered
+    over heads once: into the global buffers, which come back, or as new
+    tensors where shards were passed.
     """
+    tp = _layout(params)
     ids = torch.as_tensor(np.asarray(token_ids) if not isinstance(token_ids, torch.Tensor) else token_ids)
     batched = ids.dim() > 1
+    keys, values = _local_kv(cache_keys, tp), _local_kv(cache_values, tp)
     if batched:
-        ids = ids.to(cache_keys.device)
+        ids = ids.to(keys.device)
     n_steps = ids.shape[-1]
-    if cache_keys.shape[-2] < start_position + n_steps:
-        raise ValueError(f"buffer of {cache_keys.shape[-2]} rows cannot take {n_steps} tokens from {start_position}")
+    if keys.shape[-2] < start_position + n_steps:
+        raise ValueError(f"buffer of {keys.shape[-2]} rows cannot take {n_steps} tokens from {start_position}")
     hs, k_news, v_news, ents = [], [], [], []
     axis = ids.dim() - 1
     for t in range(n_steps):
         pos = int(start_position) + t
         tok = ids[..., t] if batched else int(ids[t])
-        h, (kn, vn), ent = llama_decode_step(config, params, tok, pos, cache_keys, cache_values)
-        ak, av = (kn, vn) if forced_keys is None else (forced_keys.select(axis, t), forced_values.select(axis, t))
-        cache_keys[..., pos:pos + 1, :] = ak
-        cache_values[..., pos:pos + 1, :] = av
+        h, kn, vn, ent, _, _ = _decode(config, params, tok, pos, keys, values, tp)
+        ak, av = (kn, vn) if forced_keys is None else (_local_kv(x.select(axis, t), tp)
+                                                       for x in (forced_keys, forced_values))
+        keys[..., pos:pos + 1, :] = ak
+        values[..., pos:pos + 1, :] = av
         hs.append(h), k_news.append(kn), v_news.append(vn), ents.append(ent)
-    return (torch.stack(hs, dim=axis), (cache_keys, cache_values),
-            (torch.stack(k_news, dim=axis), torch.stack(v_news, dim=axis)), torch.stack(ents, dim=axis))
+    k_new, v_new, ent = (torch.stack(x, dim=axis) for x in (k_news, v_news, ents))
+    if tp is None:
+        return torch.stack(hs, dim=axis), (cache_keys, cache_values), (k_new, v_new), ent
+    filled = []
+    for buffer, local in ((cache_keys, keys), (cache_values, values)):
+        whole = tp.gather_kv(local, -3)
+        filled.append(whole if isinstance(buffer, LocalShard) else buffer.copy_(whole))
+    return (torch.stack(hs, dim=axis), tuple(filled), (tp.gather_kv(k_new, -3), tp.gather_kv(v_new, -3)),
+            tp.gather_q(ent, -1))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the layout, the shard of the weights and of a cache
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TPLayout:
+    """One rank's part of a tensor-parallel Llama (``shard_llama_params``).
+
+    The rank runs query heads [q_heads[0], q_heads[1]) and KV heads
+    [kv_heads[0], kv_heads[1]). ``kv_replicas`` is 1 where the KV heads split
+    over the ranks; where the ranks outnumber them, each KV head is computed by
+    ``kv_replicas`` ranks in a row, the ones whose query heads read it
+    (Megatron's KV replication; JAX's GSPMD cuts inside a head there).
+    """
+
+    mesh: object
+    rank: int
+    world: int
+    q_heads: tuple[int, int]
+    kv_heads: tuple[int, int]
+    kv_replicas: int
+
+    @property
+    def n_q(self) -> int:
+        return self.q_heads[1] - self.q_heads[0]
+
+    @property
+    def n_kv(self) -> int:
+        return self.kv_heads[1] - self.kv_heads[0]
+
+    @property
+    def kv_first(self) -> bool:
+        """Whether this rank is the first of its KV heads' holders (always, where they split)."""
+        return self.rank % self.kv_replicas == 0
+
+    def check(self) -> None:
+        """Refuse a shard made for another rank of another mesh."""
+        if (self.rank, self.world) != (self.mesh.get_local_rank(), self.mesh.size()):
+            raise ValueError(f"Llama weights sharded for rank {self.rank} of {self.world} were handed to rank "
+                             f"{self.mesh.get_local_rank()} of {self.mesh.size()}")
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's partial ``x``, the same bits on every rank."""
+        return all_reduce_sum(x, self.mesh)
+
+    def gather_q(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' query-head outputs concatenated along their head ``dim``: every head once, in order."""
+        return gather_rows(x, self.mesh, dim)
+
+    def gather_kv(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' KV-head tensors concatenated along their head ``dim``, each head once (a replicated
+        head's first holder's), in order."""
+        whole = gather_rows(x, self.mesh, dim)
+        if self.kv_replicas == 1:
+            return whole
+        firsts = torch.arange(0, self.world, self.kv_replicas, device=whole.device)
+        return whole.index_select(dim, firsts)
+
+
+def _layout(params: dict) -> TPLayout | None:
+    """The params' TP layout (checked against this rank), or None for whole weights."""
+    tp = params.get("tp")
+    if tp is not None:
+        tp.check()
+    return tp
+
+
+def _local_kv(cache, tp: TPLayout | None):
+    """This rank's KV heads of a cache (*C, L, n_kv, S, D): the cache itself without TP; a ``shard_kv_heads``
+    shard, checked; or a view of the global cache, which must lie on the mesh's kind of device."""
+    if tp is None:
+        return cache
+    if isinstance(cache, LocalShard):
+        local = cache.on(tp.mesh)
+        if local.shape[-3] != tp.n_kv:
+            raise ValueError(f"a cache shard of {local.shape[-3]} KV heads was handed to a rank that runs {tp.n_kv}")
+        return local
+    check_on_mesh(cache, tp.mesh)
+    return cache.narrow(-3, tp.kv_heads[0], tp.n_kv)
+
+
+def shard_kv_heads(cache, layout: TPLayout) -> LocalShard:
+    """This rank's KV heads of a cache or buffer (*C, L, n_kv, S, D), alone on its device, for the decode step and
+    the rollout under ``layout`` (``shard_llama_params(...)["tp"]``): JAX's cache placed with
+    ``PartitionSpec(None, "tp", None, None)``. ``cache`` may lie on the host (put on the card once here)."""
+    layout.check()
+    check_on_mesh(cache, layout.mesh, from_host=True)
+    cache = torch.as_tensor(cache)
+    local = cache.narrow(-3, layout.kv_heads[0], layout.n_kv).contiguous().to(mesh_device(layout.mesh))
+    return LocalShard.of(local, layout.mesh)
+
+
+def shard_llama_params(params: dict, mesh, axis: str | None = "tp", expert_axis: str | None = None, *,
+                       config: LlamaConfig) -> dict:
+    """Megatron tensor parallelism of a Llama's weights over a mesh (``llama_jax.shard_llama_params``, :1858).
+
+    Every rank calls it with the global ``{"embed", "layers"}`` params, on
+    the host (each rank then copies only its leaves to its device) or on the
+    mesh's kind of device, and gets this rank's leaves on its device under
+    the same names, plus ``"tp"``, its ``TPLayout``. ``config`` gives the
+    head geometry: the port cuts at head boundaries. The layout is JAX's:
+    q / k / v, their biases and gate / up split their output columns, o and
+    down their input rows; ``o_bias`` is replicated and added once after the
+    sum; sinks follow the query heads, Cohere's per-head q / k norms their
+    heads, OLMo-2's flat q / k norms their columns; Mixtral's and the Qwen
+    MoEs' w1 / w3 split their intermediate (last) dim and w2 its
+    intermediate dim, the Qwen2-MoE shared expert splits as a dense MLP;
+    routers, ``sh_gate``, other norms, the embedding and GPT-OSS's experts
+    (whose interleaved gate / up pairs a column split would separate) are
+    replicated.
+
+    The query heads must divide over the ranks; the KV heads must divide over
+    them or divide their count (then each KV head is replicated on the ranks
+    whose query heads read it). ``axis`` names JAX's mesh axis: the port's
+    mesh is 1-D, so it is only refused as None. ``expert_axis`` (expert
+    parallelism) is not ported: refused on a MoE checkpoint, and on a dense
+    one with JAX's error.
+    """
+    layers = params["layers"]
+    if expert_axis is not None:
+        if "router" not in layers[0]:
+            raise ValueError("expert_axis given but the checkpoint has no MoE leaves (dense MLP — use axis='tp' "
+                             "tensor parallelism instead)")
+        raise NotImplementedError("expert parallelism (expert_axis) is not ported to PyTorch: it waits for "
+                                  "ROADMAP.md queue 1, item 8")
+    if axis is None:
+        raise NotImplementedError("axis=None (replicated attention for pure expert parallelism) waits with expert "
+                                  "parallelism for ROADMAP.md queue 1, item 8")
+    if config.qk_norm_full and config.layernorm:
+        raise NotImplementedError("a flat q / k LayerNorm has no tensor-parallel form here (no family has one)")
+    check_on_mesh(params["embed"], mesh, from_host=True)
+    rank, world = mesh.get_local_rank(), mesh.size()
+    n_q, n_kv, d = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    check_divisible(n_q, mesh, "query head count")
+    if n_kv % world == 0:
+        replicas, kv_per = 1, n_kv // world
+        kv0 = rank * kv_per
+    elif world % n_kv == 0:
+        replicas, kv_per = world // n_kv, 1
+        kv0 = rank // replicas
+    else:
+        raise ValueError(f"{n_kv} KV heads neither divide over {world} ranks nor divide their count (Megatron's "
+                         "KV replication needs one or the other)")
+    q_per = n_q // world
+    q0 = rank * q_per
+    device = mesh_device(mesh)
+
+    def heads(first, count, dim, width=d):
+        return lambda x: x.narrow(dim, first * width, count * width)
+
+    def inner(dim):  # an intermediate dim, split evenly
+        def cut(x):
+            check_divisible(int(x.shape[dim]), mesh, "intermediate size")
+            per = x.shape[dim] // world
+            return x.narrow(dim, rank * per, per)
+        return cut
+
+    q_cols, kv_cols = heads(q0, q_per, -1), heads(kv0, kv_per, -1)
+    rules = {"q": q_cols, "q_bias": q_cols, "k": kv_cols, "k_bias": kv_cols, "v": kv_cols, "v_bias": kv_cols,
+             "o": heads(q0, q_per, 0), "sinks": heads(q0, q_per, 0, 1),
+             "gate": inner(-1), "up": inner(-1), "down": inner(0), "w1": inner(-1), "w3": inner(-1), "w2": inner(1),
+             "sh_w1": inner(-1), "sh_w3": inner(-1), "sh_w2": inner(0)}
+    if config.qk_norm_full:  # OLMo-2's flat norms: their columns
+        rules.update(q_norm=q_cols, k_norm=kv_cols)
+    elif config.qk_norm and config.layernorm:  # Cohere's (heads, head_dim) weights: their heads
+        rules.update(q_norm=heads(q0, q_per, 0, 1), k_norm=heads(kv0, kv_per, 0, 1))
+
+    def place(name, x):
+        x = torch.as_tensor(x)
+        return rules.get(name, lambda y: y)(x).contiguous().to(device)
+
+    layout = TPLayout(mesh, rank, world, (q0, q0 + q_per), (kv0, kv0 + kv_per), replicas)
+    return {"embed": place("embed", params["embed"]),
+            "layers": [{name: place(name, x) for name, x in lp.items()} for lp in layers], "tp": layout}
 
 
 # ---------------------------------------------------------------------------
@@ -866,61 +1149,79 @@ def prefill_and_save_kv(config: LlamaConfig, params: dict, input_ids, output_dir
     the prefill sequence-parallel over this mesh (``llama_prefill_kv_sp``;
     every rank calls this with the same ids): the ids are END-padded to a
     multiple of the mesh and the cache sliced back, exact because under a
-    causal mask trailing pad rows cannot reach an earlier row's K/V; rank 0
-    alone writes, the other ranks wait for it.
+    causal mask trailing pad rows cannot reach an earlier row's K/V. With
+    ``shard_llama_params``' params the prefill is tensor-parallel over their
+    mesh (every rank calls this alike), the K/V gathered over heads. On a
+    mesh rank 0 alone writes, the other ranks wait for it.
     """
     ids = np.asarray(input_ids)
     n = int(len(ids))
+    tp = params.get("tp")
     if seq_mesh is None:
         keys, values = llama_prefill_kv(config, params, ids)
     else:
         padded = np.pad(ids, (0, pad_to_multiple(n, seq_mesh.size()) - n))
         keys, values = (x[:, :, :n] for x in llama_prefill_kv_sp(config, params, padded, seq_mesh))
+    mesh = seq_mesh if tp is None else tp.mesh
     metadata = KVMetadata(model_name=str(model_name), num_layers=config.num_hidden_layers,
                           num_kv_heads=config.num_key_value_heads, seq_len=n, head_dim=config.head_dim,
                           actual_tokens=n)
-    if seq_mesh is None or seq_mesh.get_local_rank() == 0:
+    if mesh is None or mesh.get_local_rank() == 0:
         keys = keys.float().cpu().numpy()
         values = values.float().cpu().numpy()
         output_dir = Path(output_dir)
         for layer_idx in range(config.num_hidden_layers):
             kvstore.save_layer(output_dir, layer_idx, keys[layer_idx], values[layer_idx])
         kvstore.save_metadata(output_dir, metadata)
-    if seq_mesh is not None:
-        barrier(seq_mesh)
+    if mesh is not None:
+        barrier(mesh)
     return metadata
 
 
-def load_for_extraction(model_dir, dtype, device, state: dict | None, loader) -> dict:
-    """``state`` holding ``config``, ``params`` and ``tokenizer`` of ``model_dir``: loaded once per directory, dtype
-    and device (the JAX extractors' reuse contract), the tokenizer first so a refused one costs no weight IO."""
+def load_for_extraction(model_dir, dtype, device, state: dict | None, loader, mesh=None) -> dict:
+    """``state`` holding ``config``, ``params`` and ``tokenizer`` of ``model_dir``: loaded once per directory, dtype,
+    device and weight ``mesh`` (the mesh object itself, as JAX keys it; the JAX extractors' reuse contract), the
+    tokenizer first so a refused one costs no weight IO."""
     state = state if state is not None else {}
     key = (str(model_dir), str(dtype), str(device))
-    if state.get("model_dir") != key:
+    if state.get("model_dir") != key or state.get("mesh") is not mesh:
         print(f"Loading {model_dir} into PyTorch ({device})...")
         tokenizer = load_tokenizer(model_dir)
         config, params = loader(Path(model_dir), dtype=dtype, device=device)
-        state.update(model_dir=key, config=config, params=params, tokenizer=tokenizer)
+        state.update(model_dir=key, mesh=mesh, config=config, params=params, tokenizer=tokenizer)
     return state
 
 
+def _load_tp_shard(model_dir: Path, dtype, device, mesh) -> tuple[LlamaConfig, dict]:
+    """A checkpoint read on the host, then this rank's ``shard_llama_params`` leaves put on its device (the whole
+    model never lands on one card)."""
+    config, params = load_llama_params(model_dir, dtype=dtype, device="cpu")
+    return config, shard_llama_params(params, mesh, config=config)
+
+
 def extract_kv_with_llama(model_dir, seq_len: int, output_dir: Path, text: str, dtype=torch.bfloat16,
-                          state: dict | None = None, device=None, seq_mesh=None) -> KVMetadata:
+                          state: dict | None = None, device=None, seq_mesh=None, mesh=None) -> KVMetadata:
     """Tokenize ``text`` (at most ``seq_len`` ids), prefill, and persist per-layer K/V in the standard layout.
 
     The port of ``llama_jax.extract_kv_with_jax_llama`` (:2025) on one device
-    (the GPU unless ``"cpu"``), or with ``seq_mesh`` sequence-parallel over
-    its ranks (each rank calls this and loads the weights onto its own
-    device, the mesh's; rank 0 writes). ``state``: pass the same dict across
+    (the GPU unless ``"cpu"``); with ``seq_mesh`` sequence-parallel over its
+    ranks (each rank calls this and loads the weights onto its own device,
+    the mesh's); with ``mesh`` tensor-parallel (``shard_llama_params``: each
+    rank reads the checkpoint on the host and puts its own columns on its
+    device). On a mesh rank 0 writes. ``state``: pass the same dict across
     calls to load the checkpoint and tokenizer once, as the scaling and
     multi-prompt ladders do. The metadata's ``model_name`` is ``str(model_dir)``.
     """
-    device = resolve_device(device) if seq_mesh is None else mesh_device(seq_mesh, device)
-    state = load_for_extraction(model_dir, dtype, device, state, load_llama_params)
+    if seq_mesh is not None and mesh is not None:
+        raise ValueError("mesh (TP) and seq_mesh (SP) are mutually exclusive")
+    ranks = seq_mesh if seq_mesh is not None else mesh
+    device = resolve_device(device) if ranks is None else mesh_device(ranks, device)
+    loader = load_llama_params if mesh is None else functools.partial(_load_tp_shard, mesh=mesh)
+    state = load_for_extraction(model_dir, dtype, device, state, loader, mesh=mesh)
     ids = np.asarray(state["tokenizer"](text, truncation=True, max_length=seq_len)["input_ids"])
     print(f"Sequence length: {len(ids)} tokens")
-    print("Running prefill..." if seq_mesh is None else
-          f"Running prefill, sequence-parallel over {seq_mesh.size()} ranks...")
+    print("Running prefill..." if ranks is None else
+          f"Running prefill, {'sequence' if mesh is None else 'tensor'}-parallel over {ranks.size()} ranks...")
     metadata = prefill_and_save_kv(state["config"], state["params"], ids, output_dir, model_dir, seq_mesh=seq_mesh)
     print(f"Saved {state['config'].num_hidden_layers} layers to {output_dir}/")
     return metadata

@@ -5,7 +5,9 @@ over every chip from a single controller; here every rank is its own
 process, calls each sharded function with the same global inputs, computes
 only its own rows on its own device, and all-gathers the global result
 (``gather_rows``), which every rank returns. That is what JAX's sharded
-functions return as global arrays.
+functions return as global arrays. The tensor-parallel Llama
+(``models/llama.shard_llama_params``) also sums its ranks' partial outputs
+(``all_reduce_sum``), the collectives GSPMD inserts in JAX.
 
 The mesh is a 1-D ``DeviceMesh`` named ``"fit"`` over the default process
 group: NCCL on cards (rank r on ``cuda:r``), Gloo on the CPU. A Gloo group
@@ -25,6 +27,7 @@ sharded functions take in place of the global operand.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import multiprocessing
 import multiprocessing.connection
@@ -43,6 +46,8 @@ FIT_AXIS = "fit"
 DEFAULT_TIMEOUT_S = 1800
 # torchrun's environment: a process it started joins the group it describes instead of starting ranks.
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# This process's calls of each collective (gather_rows, all_reduce_sum), world of one included.
+collectives: collections.Counter = collections.Counter()
 
 
 def pad_to_multiple(n: int, k: int) -> int:
@@ -132,29 +137,54 @@ def check_divisible(n: int, mesh, what: str) -> None:
         raise ValueError(f"{what} {n} not divisible by mesh size {world}")
 
 
+def _host_parts(x: torch.Tensor, mesh) -> list[torch.Tensor]:
+    """Every rank's ``x`` on the host, in rank order, gathered by a Gloo group as bytes (Gloo has no bf16 gather,
+    and ranks that share a card must not hand Gloo a CUDA tensor)."""
+    flat = x.contiguous().cpu().reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(flat) for _ in range(mesh.size())]
+    dist.all_gather(parts, flat, group=mesh.get_group())
+    return [p.view(x.dtype).reshape(x.shape) for p in parts]
+
+
 def gather_rows(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` (the same shape on each) concatenated along ``dim`` in rank order, on every rank.
 
-    The one collective of the sharded functions. NCCL gathers on the card
-    (``all_gather_into_tensor``); a Gloo group gathers the shards' bytes in
-    host memory and copies the result back to ``x``'s device, whatever its
-    dtype (Gloo has no bf16 gather, and not every collective takes a CUDA
-    tensor).
+    NCCL gathers on the card (``all_gather_into_tensor``); a Gloo group
+    gathers the shards' bytes in host memory and copies the result back to
+    ``x``'s device, whatever its dtype.
     """
+    collectives["gather_rows"] += 1
     world = mesh.size()
     group = mesh.get_group()
     x = x.contiguous()
     if dist.get_backend(group) == "gloo":
-        flat = x.cpu().reshape(-1).view(torch.uint8)
-        parts = [torch.empty_like(flat) for _ in range(world)]
-        dist.all_gather(parts, flat, group=group)
-        shards = [p.view(x.dtype).reshape(x.shape) for p in parts]
-        return torch.cat(shards, dim=dim).to(x.device)
+        return torch.cat(_host_parts(x, mesh), dim=dim).to(x.device)
     out = torch.empty(world * x.numel(), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x.reshape(-1), group=group)
     if dim == 0:  # rank order is row order: no copy
         return out.view(world * x.shape[0], *x.shape[1:])
     return torch.cat(out.view(world, *x.shape).unbind(0), dim=dim)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the ranks of every rank's ``x`` (the same shape and dtype on each), in ``x``'s dtype, the same
+    bits on every rank: tensor parallelism's partial sums.
+
+    NCCL reduces on the card (``all_reduce``), where every rank receives the
+    bits one reduction made. A Gloo group gathers the partials in host memory
+    and adds them there in rank order, each rank the same numbers in the same
+    order, then copies the sum back to ``x``'s device.
+    """
+    collectives["all_reduce_sum"] += 1
+    if dist.get_backend(mesh.get_group()) == "gloo":
+        parts = _host_parts(x, mesh)
+        total = parts[0].clone()
+        for part in parts[1:]:
+            total += part
+        return total.to(x.device)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=mesh.get_group())
+    return out
 
 
 def barrier(mesh) -> None:
@@ -169,6 +199,8 @@ def _setup_rank(device: str, local_rank: int, backend: str, **init) -> None:
         torch.cuda.set_device(local_rank if index is None else index)
     else:
         torch.set_num_threads(1)  # the ranks share the host's cores
+    if backend == "nccl":  # bound to its card now, not guessed from the rank at the first collective
+        init["device_id"] = torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group(backend, timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S), **init)
 
 

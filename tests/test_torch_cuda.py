@@ -1417,8 +1417,9 @@ def test_attention_bf16_split_pass_writes_every_rounded_piece_bit_for_bit(cuda_d
 @pytest.mark.parametrize("world", ["nccl", "gloo"])
 def test_mesh_shards_go_through_the_kernels(cuda_device, world):
     """dryrun_multichip's sections on the card: one NCCL rank a card, and two Gloo ranks sharing cuda:0 (NCCL
-    refuses two ranks on one card). Every rank's shards launch 2A, 2C, 2D, 2E and 2F, and each sharded path
-    equals its unsharded run on the rank's card within the dry run's limits (a rank past one raises)."""
+    refuses two ranks on one card). Every rank's shards launch 2A, 2C, 2D, 2E and 2F, and each sharded path (the
+    tensor-parallel Llama's prefill, step and rollout among them) equals its unsharded run on the rank's card
+    within the dry run's limits (a rank past one raises)."""
     import torch_mesh_ranks
     from nerf_attention_tpu_torch.parallel.mesh import run_on_mesh
 
@@ -1427,7 +1428,8 @@ def test_mesh_shards_go_through_the_kernels(cuda_device, world):
     assert len(ranks) == n
     for gaps, launched in ranks:
         assert all(launched[k] > 0 for k in ("2A", "2C", "2D", "2E", "2F")), launched
-        assert set(gaps) == {"sweep cosine_mean", "2C", "2D", "2E", "2F (o, m, l)", "sp prefill"}, gaps
+        assert set(gaps) == {"sweep cosine_mean", "2C", "2D", "2E", "2F (o, m, l)", "tp prefill", "tp decode step",
+                             "tp rollout", "tp rollout refill", "sp prefill"}, gaps
 
 
 @pytest.mark.cuda

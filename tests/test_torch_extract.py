@@ -75,9 +75,9 @@ def test_save_torch_cache_equals_jax(tmp_path, layout, dtype):
 @pytest.mark.parametrize("argv, error, match", [
     ([], FileNotFoundError, "not a local checkpoint directory"),  # --backend hf, --model meta-llama/Llama-3.1-8B
     (["--backend", "jax"], FileNotFoundError, "not a local checkpoint directory"),
-    (["--synthetic", "--mesh", "tp"], NotImplementedError, "queue 8")], ids=["hf-default", "jax", "mesh"])
+    (["--synthetic", "--mesh", "pp"], NotImplementedError, "queue 8")], ids=["hf-default", "jax", "mesh"])
 def test_refuses_what_is_not_ported(tmp_path, argv, error, match):
-    """A hub name cannot resolve without a network (the default --model is one), and --mesh waits for queue 8:
+    """A hub name cannot resolve without a network (the default --model is one), and --mesh pp waits for queue 8:
     each is refused before anything is written. tests/test_torch_extract_text.py runs both backends."""
     with pytest.raises(error, match=match):
         extract.main([*argv, "--device", "cpu", "--output_dir", str(tmp_path / "kv")])

@@ -375,3 +375,16 @@ def test_study_and_quickstart_mesh_write_the_single_device_sweep(tmp_path, monke
                          *(["--mesh", "--mesh_ranks", "2"] if run == "mesh" else [])])
     fits = "results/fits_quick/fit_results.json"
     assert _records(tmp_path / "qs_mesh" / fits) == _records(tmp_path / "qs_single" / fits)
+
+
+def test_full_layer_profile_mesh_writes_the_single_device_records(tmp_path, kv_dir):
+    """run_full_layer_profile(mesh=) on 2 Gloo ranks (JAX's :464, :518): the 8 fits (head 0's keys and values of
+    4 layers) sharded over the ranks return and write, once, the single-device run's records."""
+    from nerf_attention_tpu_torch.experiments import scaling
+
+    single = scaling.run_full_layer_profile(kv_dir, tmp_path / "single", epochs=5, verbose=False, device="cpu")
+    sharded = port_mesh.run_on_mesh(torch_mesh_ranks.layer_profile, kv_dir, tmp_path / "mesh", 5, world_size=2,
+                                    device="cpu")
+    assert len(single) == 8 and sharded == single
+    assert (json.loads((tmp_path / "mesh" / "full_layer_profile.json").read_text())
+            == json.loads((tmp_path / "single" / "full_layer_profile.json").read_text()))

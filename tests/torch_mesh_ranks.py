@@ -1,4 +1,5 @@
-"""Rank programs of the multi-device CPU tests (tests/test_torch_mesh.py, tests/test_torch_llama_sp.py).
+"""Rank programs of the multi-device CPU tests (tests/test_torch_mesh.py, tests/test_torch_llama_sp.py,
+tests/test_torch_llama_tp.py).
 
 ``parallel.mesh.run_on_mesh`` runs each on every rank of a Gloo fit mesh,
 in spawned processes that import this module (so it imports no JAX). Each
@@ -10,6 +11,7 @@ by ``all_gather_object``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -61,8 +63,8 @@ def _stack_bytes(stack) -> int:
 def _refusal(fn) -> str:
     try:
         fn()
-    except ValueError as err:
-        return str(err)
+    except (ValueError, NotImplementedError) as err:
+        return f"{type(err).__name__}: {err}"
     return "not refused"
 
 
@@ -211,6 +213,146 @@ def sp_prefills(mesh, cases: list, padded: tuple, ragged: tuple) -> dict:
     out["ragged"] = _refusal(lambda: llama.llama_prefill_kv_sp(llama.LlamaConfig(**fields), params, ids, mesh))
     return out
 
+
+def _same_on_every_rank(x: torch.Tensor, mesh) -> bool:
+    """Whether every rank holds ``x`` bit for bit as rank 0 does."""
+    from nerf_attention_tpu_torch.parallel.mesh import gather_rows
+
+    parts = gather_rows(x.reshape(1, -1), mesh)
+    return all(torch.equal(parts[0], part) for part in parts)
+
+
+@contextlib.contextmanager
+def _checked_reduces(mesh, record: list):
+    """Inside the block, every ``all_reduce_sum`` of the TP forward appends whether its sum came out the same bits on
+    every rank."""
+    inner = llama.all_reduce_sum
+
+    def checked(x, m):
+        out = inner(x, m)
+        record.append(_same_on_every_rank(out, mesh))
+        return out
+
+    llama.all_reduce_sum = checked
+    try:
+        yield
+    finally:
+        llama.all_reduce_sum = inner
+
+
+def _tp_case(mesh, config, params, ids, position, keys, values) -> dict:
+    """One configuration under TP: the prefill, the decode step at ``position`` over the global prefix cache
+    ``keys`` / ``values`` [:position] (with both captures), and the rollout of ids[position:] from the rank's
+    ``shard_kv_heads`` of the buffers (rows past ``position`` zeroed)."""
+    sharded = llama.shard_llama_params(params, mesh, config=config)
+    keys, values = torch.from_numpy(keys), torch.from_numpy(values)
+    reduces: list[bool] = []
+    with _checked_reduces(mesh, reduces):
+        prefill = llama.llama_prefill_kv(config, sharded, ids)
+        h, (k_new, v_new), ent, ffn_x, sink = llama.llama_decode_step(
+            config, sharded, int(ids[position]), position, keys[:, :, :position], values[:, :, :position],
+            capture_ffn_input=True, capture_sink_mass=True)
+        kept = (torch.arange(keys.shape[2]) < position)[None, None, :, None]
+        buffers = [llama.shard_kv_heads(torch.where(kept, x, 0.0), sharded["tp"]) for x in (keys, values)]
+        hs, filled, (rk, rv), rent = llama.llama_decode_rollout(config, sharded, ids[position:], position, *buffers)
+    return dict(prefill=[_np(x) for x in prefill], step=[_np(x) for x in (h, k_new, v_new, ent, ffn_x, sink)],
+                rollout=[_np(x) for x in (hs, *filled, rk, rv, rent)], reduces=len(reduces),
+                same_bits=all(reduces) and _same_on_every_rank(h, mesh) and _same_on_every_rank(hs, mesh))
+
+
+def tp_forwards(mesh, cases: list, batched: tuple, extraction: tuple) -> dict:
+    """tests/test_torch_llama_tp.py's cases on this rank's mesh.
+
+    ``cases``: (name, LlamaConfig, params, ids, position, prefill keys,
+    values) each (``_tp_case``); ``batched``: (config, params, tokens,
+    positions, keys, values) for a decode step over a batch of caches,
+    sharded and unsharded; ``extraction``: (config, params, ids, output_dir)
+    for ``prefill_and_save_kv`` under TP, with each rank's layer writes.
+    Returns rank 0's outputs, every rank's layout and leaf shapes, the
+    refusals, and whether every sum came out the same bits on every rank.
+    """
+    from nerf_attention_tpu_torch.io import kvstore
+    from nerf_attention_tpu_torch.parallel.mesh import LocalShard
+
+    rank, world = mesh.get_local_rank(), mesh.size()
+    out: dict = {name: _tp_case(mesh, config, params, ids, position, keys, values)
+                 for name, config, params, ids, position, keys, values in cases}
+    out["same bits"] = _every_rank({name: out[name].pop("same_bits") for name, *_ in cases})
+
+    config, params, tokens, positions, keys, values = batched
+    sharded = llama.shard_llama_params(params, mesh, config=config)
+    keys, values = torch.from_numpy(keys), torch.from_numpy(values)
+    tokens, positions = torch.from_numpy(tokens), torch.from_numpy(positions)
+    kw = dict(capture_ffn_input=True, capture_sink_mass=True)
+    step = llama.llama_decode_step(config, sharded, tokens, positions, keys, values, **kw)
+    shards = [llama.shard_kv_heads(x, sharded["tp"]) for x in (keys, values)]
+    from_shards = llama.llama_decode_step(config, sharded, tokens, positions, *shards, **kw)
+    whole = llama.llama_decode_step(config, params, tokens, positions, keys, values, **kw)
+    flat = lambda r: [r[0], *r[1], *r[2:]]
+    out["batched"] = dict(tp=[_np(x) for x in flat(step)], unsharded=[_np(x) for x in flat(whole)],
+                          shards_equal=all(torch.equal(a, b) for a, b in zip(flat(step), flat(from_shards))))
+    # The rollout into global buffers on every rank: each rank writes its heads in place, the gathered rows land
+    # in the caller's buffers, and they equal the rollout from the rank's shards bit for bit.
+    buffers = [x[0].clone() for x in (keys, values)]
+    ids = np.asarray([int(t) for t in tokens])
+    start = int(positions.min())
+    hs, filled, _, _ = llama.llama_decode_rollout(config, sharded, ids, start, *buffers)
+    shard_run = llama.llama_decode_rollout(config, sharded, ids, start,
+                                           *[llama.shard_kv_heads(x[0], sharded["tp"]) for x in (keys, values)])
+    out["global buffers"] = dict(in_place=all(f is b for f, b in zip(filled, buffers)),
+                                 equal=torch.equal(hs, shard_run[0])
+                                 and all(torch.equal(a, b) for a, b in zip(filled, shard_run[1])))
+    # A batched rollout (the three caches, two tokens each) with forced rows (the contamination-control arm),
+    # sharded and unsharded.
+    steps = 2
+    batch_ids = np.stack([np.arange(steps) + first for first in (3, 7, 9)])
+    forced = [torch.randn(3, steps, *x.shape[1:3], 1, x.shape[-1], generator=torch.Generator().manual_seed(i))
+              for i, x in enumerate((keys, values))]
+    runs = {}
+    for name, p in (("tp", sharded), ("unsharded", params)):
+        hs, (fk, fv), (rk, rv), ent = llama.llama_decode_rollout(config, p, batch_ids, start, keys.clone(),
+                                                                 values.clone(), *forced)
+        runs[name] = [_np(x) for x in (hs, fk, fv, rk, rv, ent)]
+    out["batched rollout"] = dict(runs, forced=[_np(x) for x in forced], start=start)
+
+    layout = sharded["tp"]
+    out["layouts"] = _every_rank(dict(q_heads=layout.q_heads, kv_heads=layout.kv_heads,
+                                      kv_replicas=layout.kv_replicas,
+                                      shapes={k: tuple(v.shape) for k, v in sharded["layers"][0].items()}))
+
+    (dense_config, dense), (moe_config, moe) = (next((c, p) for _, c, p, *_ in cases if bool(c.num_local_experts) == e)
+                                                for e in (False, True))
+    other = LocalShard(shards[0].value, (rank + 1) % world, world)
+    elsewhere = dict(sharded, tp=dataclasses.replace(layout, rank=(rank + 1) % world))
+    five_heads = dataclasses.replace(config, num_attention_heads=5, num_key_value_heads=1)
+    twelve_heads = dataclasses.replace(config, num_attention_heads=12, num_key_value_heads=3)
+    out["refusals"] = {
+        "expert_axis on a MoE": _refusal(lambda: llama.shard_llama_params(moe, mesh, expert_axis="ep",
+                                                                          config=moe_config)),
+        "expert_axis on a dense model": _refusal(lambda: llama.shard_llama_params(dense, mesh, expert_axis="ep",
+                                                                                  config=dense_config)),
+        "5 query heads": _refusal(lambda: llama.shard_llama_params(params, mesh, config=five_heads)),
+        "3 KV heads": _refusal(lambda: llama.shard_llama_params(params, mesh, config=twelve_heads)),
+        "another rank's weights": _refusal(lambda: llama.llama_prefill_kv(config, elsewhere, ids)),
+        "another rank's cache": _refusal(lambda: llama.llama_decode_step(config, sharded, int(ids[0]), 1, other,
+                                                                         shards[1])),
+        "SP on TP weights": _refusal(lambda: llama.llama_prefill_kv_sp(config, sharded, np.arange(world), mesh)),
+    }
+
+    config, params, ids, output_dir = extraction
+    writes: list[int] = []
+    with _recording(kvstore, "save_layer", lambda a, kw: int(a[1]), writes):
+        out["extraction"] = llama.prefill_and_save_kv(config, llama.shard_llama_params(params, mesh, config=config),
+                                                      ids, output_dir, "toy").to_dict()
+    out["writes"] = _every_rank(writes)
+    return out
+
+
+def layer_profile(mesh, kv_dir, output_dir, epochs: int) -> list:
+    """``experiments.scaling.run_full_layer_profile(mesh=)`` on this rank (tests/test_torch_mesh.py)."""
+    from nerf_attention_tpu_torch.experiments import scaling
+
+    return scaling.run_full_layer_profile(kv_dir, output_dir, epochs=epochs, verbose=False, mesh=mesh)
 
 
 def card_dryrun(mesh) -> list:
